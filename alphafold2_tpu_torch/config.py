@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -57,3 +57,11 @@ class ModelConfig:
         return Alphafold2(
             **kwargs, dtype=torch.bfloat16 if use_bf16 else torch.float32,
             device=device, generator=generator)
+
+    def sparse_kwargs(self) -> Dict[str, int]:
+        """The one set of block-sparsity knobs, shared by the model-level
+        `sparse_self_attn` menu and the serving kernel policy
+        (`serve.kernelpolicy.KernelPolicy.from_model_config`)."""
+        return {"block": self.sparse_block,
+                "num_global": self.sparse_num_global,
+                "window": self.sparse_window}

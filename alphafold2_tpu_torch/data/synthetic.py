@@ -1,4 +1,4 @@
-"""Synthetic fixed-shape batches (counterpart of
+"""Synthetic fixed-shape batches and serving requests (counterpart of
 `alphafold2_tpu/data/synthetic.py:17-99`).
 
 Draws from a `numpy.random.Generator` so the same seed gives the same
@@ -42,6 +42,33 @@ def synthetic_batch(
         out["coords"] = np.cumsum(steps, axis=1)
     return {k: torch.as_tensor(np.array(v), device=device)
             for k, v in out.items()}
+
+
+def synthetic_requests(
+    rng: np.random.Generator,
+    num: int = 32,
+    lengths=(24, 48, 96),
+    msa_depth: int = 3,
+    deadline_s=None,
+    priority_levels: int = 1,
+):
+    """Random mixed-length `serve.request.FoldRequest`s for load tests.
+    Lengths cycle through `lengths` (every bucket is covered whatever
+    `num` is); msa_depth=0 emits MSA-free requests."""
+    from alphafold2_tpu_torch.serve.request import FoldRequest
+
+    requests = []
+    for i in range(num):
+        n = int(lengths[i % len(lengths)])
+        seq = rng.integers(0, constants.NUM_AMINO_ACIDS, (n,))
+        msa = None
+        if msa_depth > 0:
+            msa = rng.integers(0, constants.NUM_AMINO_ACIDS,
+                               (msa_depth, n))
+        requests.append(FoldRequest(
+            seq=seq, msa=msa, deadline_s=deadline_s,
+            priority=i % max(priority_levels, 1)))
+    return requests
 
 
 def pad_to(x: torch.Tensor, target_len: int, axis: int = 1,

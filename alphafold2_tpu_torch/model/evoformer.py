@@ -66,9 +66,12 @@ class MsaAttentionBlock(nn.Module):
         self.row_attn = AxialAttention(
             dim, heads, dim_head, row_attn=True, col_attn=False,
             accept_edges=True, dtype=dtype)
+        # the column track attends alignment rows: a serving spec's
+        # residue-axis pattern never applies here, even when the MSA depth
+        # equals the bucket length
         self.col_attn = AxialAttention(
             dim, heads, dim_head, row_attn=False, col_attn=True,
-            dtype=dtype)
+            sparse_kernel_ok=False, dtype=dtype)
 
     def forward(self, x, mask=None, pairwise_repr=None):
         x = self.row_attn(x, mask=mask, edges=pairwise_repr) + x
@@ -108,7 +111,8 @@ _NOT_PORTED = {
     "pipeline_stages": (1, "queue 1, item 10 (parallel/pipeline.py)"),
     "reversible": (False, "queue 1, item 11 (model/reversible.py)"),
     "use_conv": (False, "queue 1, item 11 (attention_variants.py)"),
-    "sparse_self_attn": (False, "queue 1, item 11 and kernel K2"),
+    "sparse_self_attn": (False, "queue 1, item 11 "
+                         "(attention_variants.BlockSparseAttention)"),
     "linear_attn": (False, "queue 1, item 11 (attention_variants.py)"),
     "kron_attn": (False, "queue 1, item 11 (attention_variants.py)"),
     "kv_compress_ratio": (0, "queue 1, item 11 (attention_variants.py)"),

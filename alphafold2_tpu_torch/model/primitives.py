@@ -9,11 +9,17 @@ follow the flax names (`weights.load_jax_params` maps one onto the other).
 Every non-global self-attention goes through `ops.attention
 .fused_attention`: the CUDA kernel for tensors on the card, its plain
 version for tensors on the CPU. The global-query (`tie_dim`) branch stays
-plain PyTorch, as it stays plain XLA in the JAX package.
+plain PyTorch, as it stays plain XLA in the JAX package. Under an active
+`ops.block_sparse.kernel_context` (the serving executor's long buckets),
+self-attention whose attended axis has the spec's length goes through
+`ops.block_sparse.block_sparse_attention` instead, or, with the spec's
+"masked" backend, through the fused attention with the pattern as an
+additive bias.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -21,6 +27,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from alphafold2_tpu_torch.ops.attention import MASK_VALUE, fused_attention
+from alphafold2_tpu_torch.ops.block_sparse import (active_kernel_plan,
+                                                   active_kernel_spec,
+                                                   block_sparse_attention,
+                                                   kernel_context)
 
 
 def not_ported(option: str, value, roadmap: str):
@@ -165,6 +175,21 @@ class Attention(nn.Module):
 
         if tie_dim is None:
             b_all, n_q, n_k = q.shape[0], q.shape[-2], k.shape[-2]
+            spec = active_kernel_spec()
+            if spec is not None and (n_q != n_k or not spec.covers(n_q)):
+                spec = None
+            if spec is not None and spec.backend == "auto":
+                return self._block_sparse(q, k, v, x, mask, attn_bias,
+                                          attn_bias_repeat, spec)
+            if spec is not None:
+                # "masked": the pattern as a -1e9 additive bias on the
+                # edge bias; the fused attention then replaces masked
+                # logits, as the JAX package's masked backend does
+                fill = torch.where(
+                    torch.as_tensor(spec.token_mask(), device=q.device),
+                    0.0, MASK_VALUE)[None, None]
+                attn_bias = fill if attn_bias is None else \
+                    attn_bias + fill.to(attn_bias.dtype)
             bias = None
             if attn_bias is not None:
                 # the kernel replays the (b, heads) bias over the fold by
@@ -183,6 +208,7 @@ class Attention(nn.Module):
             return self.finish(out.reshape(b_all, h, n_q, dh), x)
 
         # global-query attention: queries averaged over the tied rows
+        # (never block-sparse)
         b = q.shape[0] // tie_dim
         q = q.reshape(b, tie_dim, *q.shape[1:]).mean(dim=1)
         k = k.reshape(b, tie_dim, *k.shape[1:])
@@ -200,23 +226,57 @@ class Attention(nn.Module):
         out = torch.einsum("bhij,bhjd->bhid", attn, v)
         return self.finish(out, x)
 
+    def _block_sparse(self, q, k, v, x, mask, attn_bias, attn_bias_repeat,
+                      spec):
+        """Self-attention over the spec's live blocks (kernel K2 on the
+        card, its plain version on the CPU): the bias unrepeated, the mask
+        on keys only, no scale (project_qkv scaled q)."""
+        h, dh = self.heads, self.dim_head
+        b_all, n = q.shape[0], q.shape[-2]
+        plan = active_kernel_plan()
+        if plan is None or plan.cols.device != q.device:
+            # the plan is made once per fold (predict) or per executor
+            # key, never per launch
+            raise ValueError(
+                f"block-sparse spec {spec.label} is active without its "
+                f"device plan on {q.device}; pass kernel_context(spec, "
+                f"spec.device_plan(device))")
+        bias = None
+        if attn_bias is not None:
+            bias = attn_bias.float().expand(
+                b_all // attn_bias_repeat, h, n, n).reshape(
+                    -1, n, n).contiguous()
+        out = block_sparse_attention(
+            q.reshape(b_all * h, n, dh).contiguous(),
+            k.reshape(b_all * h, n, dh).contiguous(),
+            v.reshape(b_all * h, n, dh).contiguous(),
+            plan, bias=bias, bias_repeat=attn_bias_repeat,
+            k_mask=None if mask is None else mask.bool().contiguous(),
+            heads=h, scale=1.0)
+        return self.finish(out.reshape(b_all, h, n, dh), x)
+
 
 class AxialAttention(nn.Module):
     """Row or column attention over a 2-D map x (b, H, W, d): `row_attn`
     attends along W for each of the H rows, `col_attn` along H for each
     of the W columns. `accept_edges` projects a pair representation
-    (b, I, J, d) into a per-head bias, replayed over the folded axis."""
+    (b, I, J, d) into a per-head bias, replayed over the folded axis.
+    `sparse_kernel_ok=False` runs the attention outside any active
+    block-sparse spec (the MSA column attention attends alignment rows,
+    never residues)."""
 
     def __init__(self, dim: int, heads: int, dim_head: int = 64,
                  row_attn: bool = True, col_attn: bool = False,
                  accept_edges: bool = False,
-                 global_query_attn: bool = False, dtype=torch.float32):
+                 global_query_attn: bool = False,
+                 sparse_kernel_ok: bool = True, dtype=torch.float32):
         super().__init__()
         if row_attn == col_attn:
             raise ValueError("has to be either row or column attention, "
                              "not both")
         self.row_attn = row_attn
         self.global_query_attn = global_query_attn
+        self.sparse_kernel_ok = sparse_kernel_ok
         self.norm = LayerNorm(dim, dtype)
         self.attn = Attention(dim, heads=heads, dim_head=dim_head,
                               dtype=dtype)
@@ -244,10 +304,12 @@ class AxialAttention(nn.Module):
             # (b, i, j, d) -> per-head bias (b, heads, i, j)
             attn_bias = self.edges_to_attn_bias(edges).permute(0, 3, 1, 2)
 
-        out = self.attn(
-            x_fold, mask=mask_fold, attn_bias=attn_bias,
-            tie_dim=axial_dim if self.global_query_attn else None,
-            attn_bias_repeat=axial_dim if attn_bias is not None else 1)
+        off = not self.sparse_kernel_ok and active_kernel_spec() is not None
+        with kernel_context(None) if off else contextlib.nullcontext():
+            out = self.attn(
+                x_fold, mask=mask_fold, attn_bias=attn_bias,
+                tie_dim=axial_dim if self.global_query_attn else None,
+                attn_bias_repeat=axial_dim if attn_bias is not None else 1)
 
         if self.row_attn:
             return out.reshape(b, height, width, d)

@@ -1,0 +1,451 @@
+"""Block-skipping sparse attention for long serving buckets (counterpart
+of `alphafold2_tpu/ops/block_sparse.py`).
+
+Host half (numpy, a copy of the JAX package's): the block patterns
+(`banded_block_pattern`, `contact_block_pattern`), their compression
+into per-q-block column lists (`plan_block_pattern`), `KernelSpec` (one
+attention-kernel choice, hashable, labelled exactly as the JAX package
+labels it, so executor keys match) and the thread-local
+`kernel_context` through which `predict` hands a spec to the model.
+
+Device half: `block_sparse_attention`, the wrapper of kernel K2
+(`csrc/block_sparse.cu`), and `block_sparse_reference`, its plain
+version. Contract, shared by both:
+
+    out = softmax_j(scale * q . k^T + bias, masked -> -1e9, dead -> -inf) . v
+
+- q, k, v: (B, N, D), heads folded innermost into B, N = block * nqb.
+- Only the live blocks of the (nqb, nqb) pattern are computed; a dead
+  block acts as -inf. Every q-block keeps at least one live block.
+- bias: optional (Bb, N, N) fp32, unrepeated: query batch row i reads
+  bias row (i // (bias_repeat * heads)) * heads + i % heads.
+- k_mask: optional (B // heads, N) bool; a masked key's logit is
+  replaced by -1e9 after the bias add. There is no query mask: outputs
+  at padded query rows are unspecified. A row whose live keys are all
+  masked averages over its live keys only (the dense path averages over
+  every key, so the two differ there).
+- scale defaults to D^-1/2; the model passes 1.0 (q arrives pre-scaled).
+- fp32 softmax and accumulators; the output has q's dtype. Forward only.
+
+A `BlockPlan` is a pattern's column list on one device: `cols`
+(nqb, T) int32 and the per-row live `counts` (nqb,) int32. The serving
+executor uploads one per key when it builds the key, so no launch
+copies the plan to the card.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import threading
+from dataclasses import dataclass, field
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from alphafold2_tpu_torch import constants
+from alphafold2_tpu_torch.ops import build
+from alphafold2_tpu_torch.ops.attention import (_DTYPE_CODES, HEAD_DIMS,
+                                                MASK_VALUE, LaunchCounter)
+
+BLOCKS = (16, 32, 64, 128)
+BACKENDS = ("auto", "masked")
+
+launch_count = LaunchCounter()
+
+
+def banded_block_pattern(n_blocks: int, window: int = 1,
+                         num_global: int = 1) -> np.ndarray:
+    """(n_blocks, n_blocks) bool block pattern: attend within +-window
+    blocks of the diagonal plus the first num_global global blocks."""
+    bi = np.arange(n_blocks)
+    local = np.abs(bi[:, None] - bi[None, :]) <= window
+    glob = (bi < num_global)[:, None] | (bi < num_global)[None, :]
+    return local | glob
+
+
+def plan_block_pattern(pattern: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Compress a (nqb, nkb) boolean block pattern into a padded column
+    plan: cols[i, t] = index of the t-th live k-block of q-block i,
+    valid[i, t] = 1 where the slot is real. Every q-block must keep at
+    least one live k-block (softmax over an empty row is undefined)."""
+    pattern = np.asarray(pattern, dtype=bool)
+    counts = pattern.sum(axis=1)
+    if counts.min() < 1:
+        raise ValueError("every q block needs >= 1 live k block")
+    t_max = int(counts.max())
+    nqb = pattern.shape[0]
+    cols = np.zeros((nqb, t_max), np.int32)
+    valid = np.zeros((nqb, t_max), np.int32)
+    for i in range(nqb):
+        live = np.nonzero(pattern[i])[0]
+        cols[i, :live.size] = live
+        valid[i, :live.size] = 1
+    return cols, valid
+
+
+class BlockPlan(NamedTuple):
+    """A block pattern's column list on one device (see module doc)."""
+
+    pattern: np.ndarray        # (nqb, nqb) bool, host copy
+    block: int
+    cols: torch.Tensor         # (nqb, T) int32
+    counts: torch.Tensor       # (nqb,) int32
+
+    @property
+    def n(self) -> int:
+        return self.block * self.pattern.shape[0]
+
+    @classmethod
+    def build(cls, pattern, block: int, device) -> "BlockPlan":
+        pattern = np.asarray(pattern, dtype=bool)
+        if pattern.ndim != 2 or pattern.shape[0] != pattern.shape[1]:
+            raise ValueError(f"pattern must be square, got {pattern.shape}")
+        cols, valid = plan_block_pattern(pattern)
+        return cls(pattern, int(block),
+                   torch.as_tensor(cols, device=device),
+                   torch.as_tensor(valid.sum(axis=1, dtype=np.int32),
+                                   device=device))
+
+
+def token_mask(pattern: np.ndarray, block: int) -> np.ndarray:
+    """(n, n) bool token-level view of a block pattern."""
+    return np.repeat(np.repeat(pattern, block, 0), block, 1)
+
+
+@dataclass(frozen=True)
+class KernelSpec:
+    """One attention-kernel choice, static per executor key.
+
+    pattern: (nqb, nkb) block pattern as a tuple of row tuples of bool
+        (hashable; `pattern_array()` gives the numpy view). Every row
+        keeps >= 1 live block.
+    block: token block size. The spec covers attention whose attended
+        axis has length n == block * nqb exactly.
+    backend: "auto" (kernel K2 for CUDA tensors, its plain version for
+        CPU tensors, decided by the tensor's device) or "masked" (dense
+        compute through the fused attention, with the pattern as a -1e9
+        additive bias: the numerics reference). The JAX package's
+        "pallas" backend forces its kernel in interpret mode, which the
+        port does not have; it raises.
+    source: "static" (banded+global first-pass mask) or "contact"
+        (planned from a first pass's distogram); observability only.
+    """
+
+    block: int
+    pattern: Tuple[Tuple[bool, ...], ...]
+    backend: str = "auto"
+    source: str = "static"
+    _label: str = field(default="", compare=False)
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"backend {self.backend!r} is not one of {BACKENDS} (the "
+                f"port has no interpret mode, so no 'pallas' backend)")
+        nqb = len(self.pattern)
+        if nqb == 0 or any(len(r) != nqb for r in self.pattern):
+            raise ValueError("pattern must be square and non-empty")
+        if any(not any(r) for r in self.pattern):
+            raise ValueError("every q block needs >= 1 live k block")
+
+    @classmethod
+    def from_pattern(cls, pattern, block: int, backend: str = "auto",
+                     source: str = "static") -> "KernelSpec":
+        arr = np.asarray(pattern, dtype=bool)
+        return cls(block=int(block),
+                   pattern=tuple(tuple(bool(x) for x in row)
+                                 for row in arr),
+                   backend=backend, source=source)
+
+    @classmethod
+    def banded(cls, n: int, block: int, window: int = 1,
+               num_global: int = 1, backend: str = "auto"
+               ) -> "KernelSpec":
+        """The static first-pass mask (banded_block_pattern)."""
+        if n % block:
+            raise ValueError(f"n={n} not divisible by block={block}")
+        return cls.from_pattern(
+            banded_block_pattern(n // block, window, num_global),
+            block, backend=backend)
+
+    @property
+    def n(self) -> int:
+        return self.block * len(self.pattern)
+
+    @property
+    def live_fraction(self) -> float:
+        flat = [x for row in self.pattern for x in row]
+        return sum(flat) / float(len(flat))
+
+    @property
+    def label(self) -> str:
+        """Short stable identifier (the ExecKey element), byte-equal to
+        the JAX package's label of the same pattern, block and backend."""
+        lbl = object.__getattribute__(self, "_label")
+        if not lbl:
+            h = hashlib.blake2b(digest_size=4)
+            h.update(np.packbits(self.pattern_array()).tobytes())
+            h.update(f"|{self.block}|{self.backend}".encode())
+            lbl = (f"bs{self.block}x{len(self.pattern)}-"
+                   f"{self.source[0]}{h.hexdigest()}")
+            object.__setattr__(self, "_label", lbl)
+        return lbl
+
+    def pattern_array(self) -> np.ndarray:
+        return np.asarray(self.pattern, dtype=bool)
+
+    def token_mask(self) -> np.ndarray:
+        """(n, n) bool token-level view of the block pattern (the masked
+        backend's additive-mask support)."""
+        return token_mask(self.pattern_array(), self.block)
+
+    def covers(self, n: int) -> bool:
+        return int(n) == self.n
+
+    def device_plan(self, device) -> BlockPlan:
+        return BlockPlan.build(self.pattern_array(), self.block, device)
+
+
+_ACTIVE = threading.local()
+
+
+def active_kernel_spec() -> Optional[KernelSpec]:
+    """The KernelSpec governing the current pass, if any (thread-local)."""
+    return getattr(_ACTIVE, "spec", None)
+
+
+def active_kernel_plan() -> Optional[BlockPlan]:
+    """The device plan that came with the active spec, if any."""
+    return getattr(_ACTIVE, "plan", None)
+
+
+@contextlib.contextmanager
+def kernel_context(spec: Optional[KernelSpec],
+                   plan: Optional[BlockPlan] = None):
+    """Activate `spec` (and its device `plan`) for the enclosed calls.
+    None suppresses an outer context: the MSA column attention, whose
+    attended axis is alignment rows, never inherits a residue-axis
+    pattern."""
+    if plan is not None and (spec is None or plan.block != spec.block
+                             or not np.array_equal(plan.pattern,
+                                                   spec.pattern_array())):
+        raise ValueError("the plan was not made from this spec")
+    prev = (getattr(_ACTIVE, "spec", None), getattr(_ACTIVE, "plan", None))
+    _ACTIVE.spec, _ACTIVE.plan = spec, plan
+    try:
+        yield
+    finally:
+        _ACTIVE.spec, _ACTIVE.plan = prev
+
+
+# -- contact-prior mask planning (host-side, numpy) -------------------------
+
+
+def contact_probs_from_distogram(distogram: np.ndarray,
+                                 cutoff: float = 8.0,
+                                 lengths=None) -> np.ndarray:
+    """(n, n) contact probability P(d < cutoff) from distogram logits
+    (softmax over the distance buckets), max-reduced over the batch axis
+    when given (b, n, n, buckets): a batch shares one pattern, so it keeps
+    any block any element needs. `lengths` (one per batch element) zeroes
+    each element's cells beyond its real residue count before the
+    reduce, so padding plans as dead blocks; a length of 0 removes the
+    element. Bucket edges follow the distogram head (linspace over
+    DISTOGRAM_MIN_DIST..DISTOGRAM_MAX_DIST)."""
+    logits = np.asarray(distogram, np.float32)
+    if logits.ndim == 3:
+        logits = logits[None]
+    b, n, n2, nb = logits.shape
+    if lengths is not None and len(lengths) != b:
+        raise ValueError(
+            f"lengths has {len(lengths)} entries for batch of {b}")
+    edges = np.linspace(constants.DISTOGRAM_MIN_DIST,
+                        constants.DISTOGRAM_MAX_DIST, nb)
+    # stable softmax over the bucket axis with one full-size temporary
+    z = logits - logits.max(-1, keepdims=True)
+    np.exp(z, out=z)
+    close = edges <= cutoff
+    probs = z[..., close].sum(-1)
+    probs /= z.sum(-1)                       # (b, n, n)
+    if lengths is not None:
+        for i, ln in enumerate(lengths):
+            ln = max(int(ln), 0)
+            probs[i, ln:, :] = 0.0
+            probs[i, :, ln:] = 0.0
+    return probs.max(0)
+
+
+def contact_block_pattern(contacts: np.ndarray, block: int, *,
+                          threshold: float = 0.5,
+                          live_frac: Optional[float] = None,
+                          window: int = 1,
+                          num_global: int = 1) -> np.ndarray:
+    """Plan a (nqb, nkb) block pattern from an (n, n) contact-probability
+    map: a block is live when its max cell probability clears
+    `threshold`, or, with `live_frac` set, when it ranks inside the top
+    live_frac of blocks. The banded window and global blocks are always
+    kept and the result is symmetrised, so every row keeps its
+    diagonal block."""
+    c = np.asarray(contacts, np.float32)
+    n = c.shape[0]
+    if c.shape != (n, n):
+        raise ValueError(f"contacts must be square, got {c.shape}")
+    if n % block:
+        raise ValueError(f"n={n} not divisible by block={block}")
+    nb = n // block
+    scores = c.reshape(nb, block, nb, block).max(axis=(1, 3))
+    if live_frac is not None:
+        live_frac = min(max(float(live_frac), 0.0), 1.0)
+        k = max(1, int(round(live_frac * nb * nb)))
+        cut = np.sort(scores.ravel())[::-1][k - 1]
+        live = scores >= cut
+    else:
+        live = scores >= threshold
+    live = live | banded_block_pattern(nb, window, num_global)
+    return live | live.T
+
+
+# -- the device half ---------------------------------------------------------
+
+
+def _as_plan(plan, block, device) -> BlockPlan:
+    if isinstance(plan, BlockPlan):
+        if block is not None and int(block) != plan.block:
+            raise ValueError(f"block={block} but the plan has block "
+                             f"{plan.block}")
+        return plan
+    if block is None:
+        raise ValueError("a raw pattern needs block=")
+    return BlockPlan.build(plan, block, device)
+
+
+def block_sparse_reference(q, k, v, plan, *, bias=None, bias_repeat: int = 1,
+                           k_mask=None, heads: int = 1,
+                           scale: Optional[float] = None,
+                           block: Optional[int] = None) -> torch.Tensor:
+    """The plain PyTorch version of the contract: dense fp32 logits, the
+    replayed bias, -1e9 at masked keys, -inf at dead blocks, an fp32
+    softmax and the product with v."""
+    plan = _as_plan(plan, block, q.device)
+    b, n, d = q.shape
+    if scale is None:
+        scale = float(d) ** -0.5
+    logits = torch.einsum("bnd,bmd->bnm", q.float() * scale, k.float())
+    if bias is not None:
+        logits = logits + bias.float().reshape(
+            -1, heads, n, n).repeat_interleave(
+                bias_repeat, dim=0).reshape(b, n, n)
+    if k_mask is not None:
+        km = (k_mask > 0).repeat_interleave(heads, dim=0)[:, None, :]
+        logits = logits.masked_fill(~km, MASK_VALUE)
+    live = torch.as_tensor(token_mask(plan.pattern, plan.block),
+                           device=q.device)
+    logits = logits.masked_fill(~live, float("-inf"))
+    attn = torch.softmax(logits, dim=-1)
+    return torch.einsum("bnm,bmd->bnd", attn, v.float()).to(q.dtype)
+
+
+def _check(q, k, v, plan, bias, bias_repeat, k_mask, heads):
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"block_sparse_attention kernel takes float32 or "
+                        f"bfloat16, got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    tensors = {"q": q, "k": k, "v": v, "bias": bias, "k_mask": k_mask,
+               "plan.cols": plan.cols, "plan.counts": plan.counts}
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"block_sparse_attention kernel needs "
+                             f"contiguous tensors; {name} is not")
+    if plan.cols.dtype != torch.int32 or plan.counts.dtype != torch.int32:
+        raise TypeError("the plan's cols and counts must be int32")
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} must all be one (B, N, D)")
+    b, n, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head width {d} not in {HEAD_DIMS}")
+    if plan.block not in BLOCKS:
+        raise ValueError(f"block {plan.block} not in {BLOCKS}")
+    if n != plan.n:
+        raise ValueError(f"N={n} but the plan covers {plan.n} "
+                         f"({plan.pattern.shape[0]} blocks of {plan.block})")
+    if b < 1 or heads < 1 or b % heads:
+        raise ValueError(f"B={b} is not a multiple of heads={heads}")
+    if bias is not None:
+        if bias.dtype != torch.float32:
+            raise TypeError(f"bias must be float32, got {bias.dtype}")
+        if bias.dim() != 3 or bias.shape[1:] != (n, n) or \
+                bias.shape[0] * bias_repeat != b or bias.shape[0] % heads:
+            raise ValueError(
+                f"bias {tuple(bias.shape)} does not fit B={b}, "
+                f"bias_repeat={bias_repeat}, heads={heads}")
+    if k_mask is not None:
+        if k_mask.dtype != torch.bool:
+            raise TypeError(f"k_mask must be bool, got {k_mask.dtype}")
+        if tuple(k_mask.shape) != (b // heads, n):
+            raise ValueError(f"k_mask {tuple(k_mask.shape)} != "
+                             f"({b // heads}, {n})")
+
+
+def _library():
+    lib = build.load("block_sparse")
+    fn = lib.af2_block_sparse_attention
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                       ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def block_sparse_attention(q, k, v, plan, *, bias=None,
+                           bias_repeat: int = 1, k_mask=None,
+                           heads: int = 1, scale: Optional[float] = None,
+                           block: Optional[int] = None) -> torch.Tensor:
+    """Attention over the live blocks of `plan` (a `BlockPlan` on q's
+    device, or a raw (nqb, nqb) pattern with `block=`). CUDA tensors go
+    through kernel K2 (D in {16, 32, 64, 128}, block in {16, 32, 64,
+    128}, float32 or bfloat16); CPU tensors take the plain version. Any
+    other device raises, and so does a tensor the kernel does not take."""
+    if q.device.type == "cpu":
+        return block_sparse_reference(q, k, v, plan, bias=bias,
+                                      bias_repeat=bias_repeat,
+                                      k_mask=k_mask, heads=heads,
+                                      scale=scale, block=block)
+    if q.device.type != "cuda":
+        raise ValueError(f"block_sparse_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
+        raise RuntimeError("block_sparse_attention is forward only; run it "
+                           "under torch.no_grad() or inference_mode()")
+    plan = _as_plan(plan, block, q.device)
+    _check(q, k, v, plan, bias, bias_repeat, k_mask, heads)
+    b, n, d = q.shape
+    if scale is None:
+        scale = float(d) ** -0.5
+    fn = _library()
+    out = torch.empty_like(q)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(k_mask),
+                 ptr(plan.cols), ptr(plan.counts), ptr(out), b, n, d,
+                 plan.block, int(plan.cols.shape[1]), heads, bias_repeat,
+                 float(scale), _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"block_sparse_attention kernel launch failed: "
+                           f"CUDA error {err} (B={b}, N={n}, D={d}, "
+                           f"block={plan.block})")
+    launch_count.value += 1
+    return out

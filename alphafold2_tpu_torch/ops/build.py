@@ -24,6 +24,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 # kernel name -> source, relative to the package
 SOURCES = {
     "fused_attention": "csrc/fused_attention.cu",
+    "block_sparse": "csrc/block_sparse.cu",
 }
 
 NVCC_FLAGS = (

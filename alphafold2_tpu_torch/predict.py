@@ -7,17 +7,25 @@ own, and `fold_init_rows` re-initialises chosen batch rows. Every entry
 point runs one function per pass (`_one_pass`), under
 `torch.inference_mode()`, on the CUDA card unless `device` names another
 (the model must already live there).
+
+`kernel` (an `ops.block_sparse.KernelSpec`) runs every pass under
+`kernel_context`: the residue-axis self-attention of the bucket's length
+goes through the block-sparse kernel. `plan` is the spec's plan on the
+device; the serving executor passes the one it holds per key, and an
+entry point given none uploads one per call.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
 
 from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.model.alphafold2 import Recyclables
-from alphafold2_tpu_torch.model.primitives import not_ported
+from alphafold2_tpu_torch.ops.block_sparse import (BlockPlan, KernelSpec,
+                                                   kernel_context)
 
 
 class FoldResult(NamedTuple):
@@ -42,33 +50,39 @@ class FoldStepState(NamedTuple):
 DEFAULT_NUM_RECYCLES = 3
 
 
-def _prepare(model, device, seq, msa, mask, msa_mask, kernel):
-    """Check the call and move the inputs onto the model's device."""
+def _prepare(model, device, seq, msa, mask, msa_mask, kernel, plan):
+    """Check the call, move the inputs onto the model's device and make
+    the kernel's device plan when none was given."""
     if not model.predict_coords:
         raise ValueError("folding needs a model built with "
                          "predict_coords=True")
-    if kernel is not None:
-        not_ported("kernel", kernel, "queue 1, item 8 and kernel K2 "
-                   "(ops/block_sparse.py)")
+    if kernel is not None and not isinstance(kernel, KernelSpec):
+        raise TypeError(f"kernel must be a KernelSpec, got {type(kernel)}")
     device = resolve_device(device)
     if model.device != device:
         raise ValueError(f"the model lives on {model.device}, the fold was "
                          f"asked to run on {device}")
+    if kernel is not None and kernel.backend == "auto" and plan is None:
+        plan = kernel.device_plan(device)
 
     def put(t, dtype):
         return None if t is None else torch.as_tensor(
             t, device=device).to(dtype)
 
     return (put(seq, torch.long), put(msa, torch.long),
-            put(mask, torch.bool), put(msa_mask, torch.bool))
+            put(mask, torch.bool), put(msa_mask, torch.bool), plan)
 
 
-def _one_pass(model, seq, msa, mask, msa_mask, recyclables):
+def _one_pass(model, seq, msa, mask, msa_mask, recyclables, kernel=None,
+              plan: Optional[BlockPlan] = None):
     """One trunk + structure pass: what fold's loop and the step-mode
-    entry points all run."""
-    return model(seq, msa=msa, mask=mask, msa_mask=msa_mask,
-                 recyclables=recyclables, return_aux_logits=True,
-                 return_recyclables=True)
+    entry points all run, under the kernel's context when one is given."""
+    ctx = kernel_context(kernel, plan) if kernel is not None \
+        else contextlib.nullcontext()
+    with ctx:
+        return model(seq, msa=msa, mask=mask, msa_mask=msa_mask,
+                     recyclables=recyclables, return_aux_logits=True,
+                     return_recyclables=True)
 
 
 def _step_state(coords, ret) -> FoldStepState:
@@ -78,41 +92,43 @@ def _step_state(coords, ret) -> FoldStepState:
 
 def fold(model, seq, msa=None, mask=None, msa_mask=None,
          num_recycles: int = DEFAULT_NUM_RECYCLES, device=None,
-         kernel=None) -> FoldResult:
-    """Run the model with `num_recycles` recycling iterations.
-
-    `kernel` (the JAX package's block-sparse KernelSpec) is not ported
-    yet and raises when given."""
-    seq, msa, mask, msa_mask = _prepare(model, device, seq, msa, mask,
-                                        msa_mask, kernel)
+         kernel: Optional[KernelSpec] = None,
+         plan: Optional[BlockPlan] = None) -> FoldResult:
+    """Run the model with `num_recycles` recycling iterations."""
+    seq, msa, mask, msa_mask, plan = _prepare(
+        model, device, seq, msa, mask, msa_mask, kernel, plan)
     with torch.inference_mode():
-        coords, ret = _one_pass(model, seq, msa, mask, msa_mask, None)
+        coords, ret = _one_pass(model, seq, msa, mask, msa_mask, None,
+                                kernel, plan)
         for _ in range(num_recycles):
             coords, ret = _one_pass(model, seq, msa, mask, msa_mask,
-                                    ret.recyclables)
+                                    ret.recyclables, kernel, plan)
         return FoldResult(*_step_state(coords, ret))
 
 
 def fold_init(model, seq, msa=None, mask=None, msa_mask=None, device=None,
-              kernel=None) -> FoldStepState:
+              kernel: Optional[KernelSpec] = None,
+              plan: Optional[BlockPlan] = None) -> FoldStepState:
     """The first pass of step-mode folding: fold(..., num_recycles=0) as
     a FoldStepState whose `recyclables` seed `fold_step`. fold_init then
     R x fold_step computes what fold(..., num_recycles=R) does."""
-    seq, msa, mask, msa_mask = _prepare(model, device, seq, msa, mask,
-                                        msa_mask, kernel)
+    seq, msa, mask, msa_mask, plan = _prepare(
+        model, device, seq, msa, mask, msa_mask, kernel, plan)
     with torch.inference_mode():
         return _step_state(*_one_pass(model, seq, msa, mask, msa_mask,
-                                      None))
+                                      None, kernel, plan))
 
 
 def fold_step(model, seq, recyclables: Recyclables, msa=None, mask=None,
-              msa_mask=None, device=None, kernel=None) -> FoldStepState:
+              msa_mask=None, device=None,
+              kernel: Optional[KernelSpec] = None,
+              plan: Optional[BlockPlan] = None) -> FoldStepState:
     """One recycle iteration, fed the previous state's `recyclables`."""
-    seq, msa, mask, msa_mask = _prepare(model, device, seq, msa, mask,
-                                        msa_mask, kernel)
+    seq, msa, mask, msa_mask, plan = _prepare(
+        model, device, seq, msa, mask, msa_mask, kernel, plan)
     with torch.inference_mode():
         return _step_state(*_one_pass(model, seq, msa, mask, msa_mask,
-                                      recyclables))
+                                      recyclables, kernel, plan))
 
 
 def _select_rows(row_mask, new, old):
@@ -125,12 +141,13 @@ def _select_rows(row_mask, new, old):
 
 def fold_init_rows(model, seq, row_mask, state: FoldStepState, msa=None,
                    mask=None, msa_mask=None, device=None,
-                   kernel=None) -> FoldStepState:
+                   kernel: Optional[KernelSpec] = None,
+                   plan: Optional[BlockPlan] = None) -> FoldStepState:
     """Row-masked init: rows where `row_mask` (b,) is True restart from
     the current batch tensors (fold_init's pass); the other rows keep the
     carried `state` unchanged."""
     fresh = fold_init(model, seq, msa=msa, mask=mask, msa_mask=msa_mask,
-                      device=device, kernel=kernel)
+                      device=device, kernel=kernel, plan=plan)
     row_mask = torch.as_tensor(row_mask, device=fresh.coords.device).bool()
     with torch.inference_mode():
         return _select_rows(row_mask, fresh, state)

@@ -7,22 +7,38 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. device: the card's name and count, and nvidia-smi's name and power
    limit;
-2. build: every CUDA kernel of the fold path, from the sources in the
-   checkout (build seconds and the -Xptxas -v report);
+2. build: every CUDA kernel of the fold path (K1 fused attention, K2
+   block-sparse attention), from the sources in the checkout, one nvcc
+   per source started together (build seconds and the -Xptxas -v
+   report);
 3. check: each kernel against its plain PyTorch version on the card, at
-   the shapes the fold path gives it, in fp32 and bf16, plus a small
-   backward against autograd through the plain version;
+   the shapes the fold path gives it, in fp32 and bf16 (K1 at the 256
+   bucket's three shapes and the 512 bucket's MSA column shape, plus a
+   small backward against autograd; K2 at the 512
+   bucket's MSA row and triangle shapes under the default policy's
+   pattern and a banded block-128 one, plus one call at the default
+   scale);
 4. time: each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls),
    beside the least time the card could take (bytes or FLOPs bound);
-5. parity: a small fp32 model folded on the card (kernel path) and on
-   the CPU (plain path) from the same weights;
+   K2 also beside K1 on the same shape with the pattern as an additive
+   bias (the dense cost);
+5. parity: small fp32 models folded on the card (kernel path) and on
+   the CPU (plain path) from the same weights, dense and under a
+   block-sparse spec;
 6. serve: the default ModelConfig (dim 256, depth 6, heads 8, dim_head
    64, bf16 trunk) with seeded random weights folds three requests of
    256, 200 and 131 residues padded to the 256 bucket, 5 MSA rows, 3
    recycles; each fold must launch every kernel of the path;
 7. profile: torch.profiler over one more fold, device time by kernel,
-   and the card's busy share of an unprofiled fold's wall time.
+   and the card's busy share of an unprofiled fold's wall time;
+8. executor: the same model behind `serve.executor.FoldExecutor` with
+   the default buckets and the default kernel policy (the 512 bucket
+   block-sparse, the others dense): warm-up, three folds of 512, 437
+   and 300 residues in the 512 bucket (72 K2 + 24 K1 launches each), one
+   of 200 residues in the 256 bucket (0 K2 + 96 K1), and a step-mode
+   fold whose steps run under a spec re-planned from the first pass's
+   distogram; then a profile of one 512-bucket fold.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -48,9 +64,15 @@ TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 BUCKET = 256
 LENGTHS = (256, 200, 131)
+SPARSE_BUCKET = 512
+SPARSE_LENGTHS = (512, 437, 300)
+DENSE_LENGTH = 200
 MSA_ROWS = 5
 NUM_RECYCLES = 3
 SEED = 0
+# K1's fold-path shapes: the 256 bucket's three, and the 512 bucket's
+# MSA column attention (B=4096, N=5)
+K1_SHAPES = ("msa_row", "msa_col", "triangle", "msa_col_512")
 
 
 def log(*args):
@@ -105,27 +127,32 @@ def ptxas_summary(report):
 
 def attention_inputs(shape, dtype, device, seed):
     """Inputs of one fold-path attention launch, with a padded tail of
-    masked residues (so some query rows are fully masked)."""
+    masked residues (so some query rows are fully masked): the 256
+    bucket's three shapes, and `msa_col_512`, the one K1 launch of a
+    512-bucket fold (its other attentions run K2)."""
     heads, d, valid = 8, 64, 200
     g = torch.Generator().manual_seed(seed)
+    bucket = BUCKET
+    if shape == "msa_col_512":  # the 512 bucket's column attention
+        shape, bucket, valid = "msa_col", SPARSE_BUCKET, 437
 
     def randn(*s, scale=1.0):
         return (torch.randn(*s, generator=g) * scale).to(device)
 
     if shape == "msa_row":      # 5 alignment rows attend over residues
-        fold, n, bias_on = MSA_ROWS, BUCKET, True
+        fold, n, bias_on = MSA_ROWS, bucket, True
         q_mask = torch.arange(n)[None].expand(fold, n) < valid
         q_mask = q_mask.clone()
         q_mask[3] = False                        # one fully masked row
         k_mask = q_mask
     elif shape == "msa_col":    # residues attend over 5 alignment rows
-        fold, n, bias_on = BUCKET, MSA_ROWS, False
+        fold, n, bias_on = bucket, MSA_ROWS, False
         k_mask = (torch.arange(fold) < valid)[:, None].expand(fold, n)
         k_mask = k_mask.clone()
         k_mask[:valid, -1] = False               # a ragged last row
         q_mask = k_mask
     else:                       # triangle attention over the pair map
-        fold, n, bias_on = BUCKET, BUCKET, True
+        fold, n, bias_on = bucket, bucket, True
         row = torch.arange(n) < valid
         q_mask = row[:, None] & row[None, :]
         k_mask = q_mask
@@ -145,7 +172,7 @@ def phase_check():
     dev = torch.device("cuda")
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in ("msa_row", "msa_col", "triangle"):
+        for shape in K1_SHAPES:
             kw = attention_inputs(shape, dtype, dev, seed=1)
             out = attn.fused_attention(**kw)
             torch.cuda.synchronize()
@@ -204,13 +231,14 @@ def cuda_ms(fn, iters, warmup=3):
 def phase_time():
     """K1 at each fold-path shape in bf16: kernel, plain version, SDPA
     yardstick and the bound. The JSON record carries the triangle shape,
-    the fold's largest and most frequent launch."""
+    the 256-bucket fold's largest and most frequent launch, and the
+    512-bucket fold's column shape under `msa_col_512_*`."""
     from alphafold2_tpu_torch.ops import attention as attn
     dtype = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
     results = {}
     for shape, iters in (("msa_row", 50), ("msa_col", 50),
-                         ("triangle", 20)):
+                         ("triangle", 20), ("msa_col_512", 50)):
         kw = attention_inputs(shape, dtype, torch.device("cuda"), seed=3)
         q, k, v, bias = kw["q"], kw["k"], kw["v"], kw["bias"]
         heads, rep = kw["heads"], kw["bias_repeat"]
@@ -250,8 +278,163 @@ def phase_time():
     per_fold = sum(results[s]["ms"] * c for s, c in
                    (("msa_row", 24), ("msa_col", 24), ("triangle", 48)))
     log(f"time fused_attention: {per_fold:.2f} ms of kernel time per fold "
-        f"(24 row + 24 column + 48 triangle launches)")
-    return results["triangle"]
+        f"(24 row + 24 column + 48 triangle launches); "
+        f"{24 * results['msa_col_512']['ms']:.2f} ms per 512-bucket fold "
+        f"(24 column launches)")
+    col512 = results["msa_col_512"]
+    return dict(results["triangle"], **{
+        f"msa_col_512_{key}": col512[key]
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
+
+
+def sparse_specs():
+    """The two K2 patterns held on the card: the default kernel policy's
+    spec for the 512 bucket (block 32, window 1, one global block) and a
+    banded block-128 one."""
+    from alphafold2_tpu_torch import ModelConfig
+    from alphafold2_tpu_torch.ops.block_sparse import KernelSpec
+    from alphafold2_tpu_torch.serve.bucketing import default_policy
+    from alphafold2_tpu_torch.serve.kernelpolicy import KernelPolicy
+    policy = KernelPolicy.from_model_config(ModelConfig(),
+                                            default_policy().edges)
+    return {"default": policy.spec_for(SPARSE_BUCKET),
+            "banded128": KernelSpec.banded(SPARSE_BUCKET, 128)}
+
+
+def block_sparse_inputs(shape, spec, dtype, device, seed):
+    """Inputs of one 512-bucket K2 launch: key masks with a padded tail
+    and key rows masked in full (a padded alignment row; the padded rows
+    of the pair map)."""
+    heads, d, valid, n = 8, 64, 437, SPARSE_BUCKET
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*s, scale=1.0):
+        return torch.randn(*s, generator=g, device=device) * scale
+
+    if shape == "msa_row":      # 5 alignment rows attend over residues
+        fold = MSA_ROWS
+        k_mask = (torch.arange(n, device=device) < valid)[None].expand(
+            fold, n).clone()
+        k_mask[3] = False
+    else:                       # triangle attention over the pair map
+        fold = n
+        row = torch.arange(n, device=device) < valid
+        k_mask = row[:, None] & row[None, :]
+    b = fold * heads
+    return dict(q=randn(b, n, d, scale=0.5).to(dtype),
+                k=randn(b, n, d, scale=0.5).to(dtype),
+                v=randn(b, n, d).to(dtype),
+                plan=spec.device_plan(device), bias=randn(heads, n, n),
+                bias_repeat=fold, k_mask=k_mask.contiguous(), heads=heads,
+                scale=1.0)
+
+
+def phase_check_block_sparse():
+    """K2 against its plain version (in fp32 on the same values) at every
+    row, at the 512 bucket's two K2 shapes, both patterns, both dtypes;
+    one more call at the default scale."""
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    dev = torch.device("cuda")
+    worst = {}
+    cases = [(dtype, shape, pname, 1.0)
+             for dtype in (torch.float32, torch.bfloat16)
+             for shape in ("msa_row", "triangle")
+             for pname in ("default", "banded128")]
+    cases.append((torch.float32, "msa_row", "default", None))
+    for dtype, shape, pname, scale in cases:
+        spec = sparse_specs()[pname]
+        kw = block_sparse_inputs(shape, spec, dtype, dev, seed=4)
+        kw["scale"] = scale
+        out = bs.block_sparse_attention(**kw)
+        torch.cuda.synchronize()
+        ref = bs.block_sparse_reference(**dict(kw, **{
+            key: kw[key].float() for key in ("q", "k", "v")}))
+        err = float((out.float() - ref).abs().max())
+        del ref
+        tol = TOLERANCE[dtype]
+        log(f"check block_sparse {shape} {pname} ({spec.label}, live "
+            f"{spec.live_fraction:.4f}) {str(dtype)[6:]} scale "
+            f"{'default' if scale is None else scale} "
+            f"B={kw['q'].shape[0]} N={kw['q'].shape[1]}: max abs err "
+            f"{err:.3e} (tolerance {tol:.0e})")
+        if not err <= tol or not torch.isfinite(out).all():
+            raise AssertionError(f"block_sparse {shape} {pname} {dtype}: "
+                                 f"max abs err {err} > {tol}")
+        worst[dtype] = max(worst.get(dtype, 0.0), err)
+    return worst
+
+
+def block_sparse_bound(kw, spec):
+    """(bound ms, 'bytes' | 'operations', bytes, flops) of one K2 call:
+    q, k, v read and out written once, the live bias tiles, the key mask
+    and the plan read once; the live blocks' two products."""
+    q, bias = kw["q"], kw["bias"]
+    b, n, d = q.shape
+    live, blk = int(spec.pattern_array().sum()), spec.block
+    nbytes = (4 * b * n * d * q.element_size()
+              + bias.shape[0] * live * blk * blk * 4
+              + kw["k_mask"].numel()
+              + kw["plan"].cols.numel() * 4 + kw["plan"].counts.numel() * 4)
+    flops = 4 * b * live * blk * blk * d
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_FLOPS[q.dtype] * 1e3
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations", nbytes, flops)
+
+
+def phase_time_block_sparse():
+    """K2 at the 512 bucket's shapes in bf16 under the default policy's
+    pattern: kernel, plain version, K1 on the same shape with the
+    pattern as an additive bias (the masked backend: the dense cost),
+    an SDPA yardstick on the equivalent dense additive mask, and the
+    bound. The JSON record carries the triangle shape."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    dtype = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    spec = sparse_specs()["default"]
+    results = {}
+    for shape, iters in (("msa_row", 50), ("triangle", 10)):
+        kw = block_sparse_inputs(shape, spec, dtype, torch.device("cuda"),
+                                 seed=5)
+        q, k, v, bias = kw["q"], kw["k"], kw["v"], kw["bias"]
+        heads, rep, k_mask = kw["heads"], kw["bias_repeat"], kw["k_mask"]
+        b, n, d = q.shape
+        ms = cuda_ms(lambda: bs.block_sparse_attention(**kw), iters=iters)
+        plain_ms = cuda_ms(lambda: bs.block_sparse_reference(**kw),
+                           iters=max(iters // 2, 3))
+        live = torch.as_tensor(spec.token_mask(), device=q.device)
+        pattern_bias = (bias + torch.where(live, 0.0, attn.MASK_VALUE)
+                        ).contiguous()
+        dense_ms = cuda_ms(lambda: attn.fused_attention(
+            q, k, v, bias=pattern_bias, q_mask=k_mask, k_mask=k_mask,
+            heads=heads, bias_repeat=rep), iters=max(iters // 2, 3))
+        # yardstick only: one library call on the equivalent additive mask
+        add_mask = bias.reshape(-1, heads, n, n).repeat_interleave(
+            rep, dim=0).reshape(b, n, n)
+        keep = k_mask.repeat_interleave(heads, dim=0)[:, None, :]
+        add_mask = add_mask.masked_fill(~keep, attn.MASK_VALUE)
+        add_mask = add_mask.masked_fill(~live, float("-inf")).to(dtype)
+        library_ms = cuda_ms(
+            lambda: sdpa(q, k, v, attn_mask=add_mask, scale=1.0),
+            iters=max(iters // 2, 3))
+        del add_mask, keep, pattern_bias
+        bound_ms, bound_by, nbytes, flops = block_sparse_bound(kw, spec)
+        log(f"time block_sparse {shape} bf16 B={b} N={n} D={d} "
+            f"({spec.label}, live {spec.live_fraction:.4f}): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, K1 with the pattern "
+            f"as bias {dense_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.3f} GFLOP)")
+        results[shape] = dict(ms=ms, plain_ms=plain_ms,
+                              library_ms=library_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, dense_k1_ms=dense_ms)
+    row, tri = results["msa_row"], results["triangle"]
+    log(f"time block_sparse: {24 * row['ms'] + 48 * tri['ms']:.2f} ms of "
+        f"K2 time per 512-bucket fold (24 row + 48 triangle launches), "
+        f"against {24 * row['dense_k1_ms'] + 48 * tri['dense_k1_ms']:.2f} "
+        f"ms for K1 on the same shapes with the pattern as bias")
+    return tri
 
 
 def perturb(model, seed, scale=0.05):
@@ -288,10 +471,45 @@ def phase_parity():
         raise AssertionError(f"card fold differs from cpu fold: {err}")
 
 
+def phase_parity_block_sparse():
+    """A small fp32 model folded under a block-sparse spec: the card (K2)
+    against the CPU (K2's plain version), same weights and inputs, at
+    real residues (padded query rows are unspecified)."""
+    from alphafold2_tpu_torch import Alphafold2, fold
+    from alphafold2_tpu_torch.data.synthetic import synthetic_batch
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    from alphafold2_tpu_torch.ops.block_sparse import KernelSpec
+    kw = dict(dim=32, depth=2, heads=2, dim_head=16, predict_coords=True,
+              generator=torch.Generator().manual_seed(SEED))
+    cpu_model = Alphafold2(**kw, device="cpu")
+    perturb(cpu_model, SEED + 1)
+    gpu_model = Alphafold2(**kw, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    batch = synthetic_batch(np.random.default_rng(SEED), seq_len=64,
+                            msa_depth=3, with_coords=False,
+                            pad_fraction=0.25)          # 48 valid residues
+    spec = KernelSpec.banded(64, 16, window=0, num_global=1)
+    ref = fold(cpu_model, **batch, num_recycles=2, device="cpu",
+               kernel=spec)
+    bs.launch_count.reset()
+    out = fold(gpu_model, **batch, num_recycles=2, device="cuda",
+               kernel=spec)
+    torch.cuda.synchronize()
+    launches = bs.launch_count.value
+    err = float((out.coords.cpu() - ref.coords)[:, :48].abs().max())
+    log(f"parity small block-sparse fold ({spec.label}, dim 32, depth 2, "
+        f"n 64, 2 recycles) card vs cpu: coords max abs err {err:.3e} "
+        f"(tolerance 1e-3), K2 launches {launches}")
+    # MSA row + two triangle attentions, 2 layers, 3 passes
+    if launches != 3 * 2 * 3:
+        raise AssertionError(f"K2 launched {launches} times, expected 18")
+    if not err <= 1e-3:
+        raise AssertionError(f"card sparse fold differs from cpu: {err}")
+
+
 def phase_serve():
     from alphafold2_tpu_torch import ModelConfig, fold
     from alphafold2_tpu_torch.data.synthetic import pad_to, synthetic_batch
-    from alphafold2_tpu_torch.ops import attention as attn
     cfg = ModelConfig(predict_coords=True)
     model = cfg.build(device="cuda",
                       generator=torch.Generator().manual_seed(SEED))
@@ -308,68 +526,57 @@ def phase_serve():
                               with_coords=False)
         req = {key: pad_to(val, BUCKET, axis=val.dim() - 1)
                for key, val in req.items()}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        attn.launch_count.reset()
-        t0 = time.perf_counter()
-        result = fold(model, **req, num_recycles=NUM_RECYCLES)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        count = attn.launch_count.value
-        peak = torch.cuda.max_memory_allocated()
-        coords, conf = result.coords, result.confidence
+        result, k2, count, seconds, peak = count_fold(
+            lambda: fold(model, **req, num_recycles=NUM_RECYCLES))
         log(f"serve fold {length} residues (bucket {BUCKET}): "
             f"{seconds * 1e3:.1f} ms wall, peak memory "
             f"{peak / 2**30:.3f} GiB, fused_attention launches {count}")
-        if tuple(coords.shape) != (1, BUCKET, 3) or \
-                not torch.isfinite(coords).all():
-            raise AssertionError(f"bad coords {tuple(coords.shape)}")
-        if not torch.isfinite(result.distogram).all():
-            raise AssertionError("non-finite distogram")
-        if not ((conf >= 0) & (conf <= 1)).all():
-            raise AssertionError("confidence outside [0, 1]")
-        if count != expected:
+        check_result(result, BUCKET)
+        if (k2, count) != (0, expected):
             raise AssertionError(f"fused_attention launched {count} times "
-                                 f"in the fold, expected {expected}")
+                                 f"and block_sparse {k2} times in the "
+                                 f"fold, expected {expected} and 0")
         launches += count
         times.append(seconds)
-    return launches, expected, times, model, req
+    return launches, times, model, cfg, req
 
 
-def phase_profile(model, req, unprofiled=5):
-    """Where one fold's device time goes: torch.profiler over a fold of
-    the last request, kernel time summed by name. The card's busy share
-    is read against the median wall time of `unprofiled` folds of the
-    same request, because the profiler slows the host that launches the
-    kernels and so stretches the fold it traces."""
+def phase_profile(run, title, unprofiled=5):
+    """Where one fold's device time goes: torch.profiler over one call of
+    `run`, kernel time summed by name. The card's busy share is read
+    against the median wall time of `unprofiled` calls of the same
+    fold, because the profiler slows the host that launches the kernels
+    and so stretches the fold it traces."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from alphafold2_tpu_torch import fold
     walls = []
     for _ in range(unprofiled):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fold(model, **req, num_recycles=NUM_RECYCLES)
+        run()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e6)
     wall_us = float(np.median(walls))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fold(model, **req, num_recycles=NUM_RECYCLES)
+        run()
         torch.cuda.synchronize()
         traced_us = (time.perf_counter() - t0) * 1e6
-    from torch.autograd import DeviceType
     rows = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
-        label = "fused_attention (K1)" if "fused_attention_kernel" in e.key \
-            else e.key[:80]
+        if "fused_attention_kernel" in e.key:
+            label = "fused_attention (K1)"
+        elif "block_sparse_kernel" in e.key:
+            label = "block_sparse_attention (K2)"
+        else:
+            label = e.key[:80]
         us, calls = rows.get(label, (0.0, 0))
         rows[label] = (us + e.self_device_time_total, calls + e.count)
     busy_us = sum(us for us, _ in rows.values())
-    log(f"profile fold: device busy {busy_us / 1e3:.1f} ms; unprofiled "
+    log(f"profile {title}: device busy {busy_us / 1e3:.1f} ms; unprofiled "
         f"wall {wall_us / 1e3:.1f} ms (median of {unprofiled}: "
         f"{[round(w / 1e3, 1) for w in walls]}), busy "
         f"{100 * busy_us / wall_us:.1f} %; wall under the profiler "
@@ -377,6 +584,128 @@ def phase_profile(model, req, unprofiled=5):
     for label, (us, calls) in sorted(rows.items(), key=lambda r: -r[1][0])[:12]:
         log(f"  {us / 1e3:9.3f} ms {100 * us / max(busy_us, 1):5.1f} % "
             f"{calls:5d} x {label}")
+
+
+def count_fold(run):
+    """Run one fold with both launch counters set to 0 just before it;
+    returns (result, K2 launches, K1 launches, wall s, peak bytes)."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn.launch_count.reset()
+    bs.launch_count.reset()
+    t0 = time.perf_counter()
+    result = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (result, bs.launch_count.value, attn.launch_count.value,
+            seconds, torch.cuda.max_memory_allocated())
+
+
+def check_result(result, bucket):
+    coords, conf = result.coords, result.confidence
+    if tuple(coords.shape) != (1, bucket, 3) or \
+            not torch.isfinite(coords).all():
+        raise AssertionError(f"bad coords {tuple(coords.shape)}")
+    if not torch.isfinite(result.distogram).all():
+        raise AssertionError("non-finite distogram")
+    if not ((conf >= 0) & (conf <= 1)).all():
+        raise AssertionError("confidence outside [0, 1]")
+
+
+def phase_executor(model, cfg):
+    """The serving path: FoldExecutor under the default buckets and the
+    default kernel policy (contact re-plans keep the top 15 % of blocks,
+    so the re-planned pattern stays sparse whatever the random weights
+    give). Returns the K2 and K1 launches of the three 512-bucket folds,
+    the executor, the last 512 batch and its spec."""
+    from alphafold2_tpu_torch.data.synthetic import synthetic_requests
+    from alphafold2_tpu_torch.serve.bucketing import (BucketPolicy,
+                                                      default_policy)
+    from alphafold2_tpu_torch.serve.executor import FoldExecutor
+    from alphafold2_tpu_torch.serve.kernelpolicy import KernelPolicy
+    edges = default_policy().edges
+    buckets = BucketPolicy(edges)
+    policy = KernelPolicy.from_model_config(cfg, edges,
+                                            contact_live_frac=0.15)
+    log(f"executor: kernel policy {json.dumps(policy.snapshot()['buckets'])}")
+    spec = policy.spec_for(SPARSE_BUCKET)
+    if spec is None or policy.spec_for(BUCKET) is not None:
+        raise AssertionError("the default policy must route only the 512 "
+                             "bucket block-sparse")
+    ex = FoldExecutor(model)
+    t0 = time.perf_counter()
+    fresh = ex.warmup([(BUCKET, 1, MSA_ROWS, NUM_RECYCLES)],
+                      kernel=policy.spec_for(BUCKET))
+    fresh += ex.warmup([(SPARSE_BUCKET, 1, MSA_ROWS, NUM_RECYCLES)],
+                       kernel=spec)
+    fresh += ex.warmup([(SPARSE_BUCKET, 1, MSA_ROWS, 0)], kernel=spec,
+                       step_mode=True)
+    log(f"executor: warm-up built {fresh} programs in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if fresh != 4:
+        raise AssertionError(f"warm-up built {fresh} programs, expected 4")
+
+    rng = np.random.default_rng(SEED + 3)
+    k2_total = k1_total = 0
+    per_fold = 3 * cfg.depth * (NUM_RECYCLES + 1)
+    for length in SPARSE_LENGTHS + (DENSE_LENGTH,):
+        bucket = buckets.bucket_for(length)
+        (req,) = synthetic_requests(rng, num=1, lengths=(length,),
+                                    msa_depth=MSA_ROWS)
+        batch, _ = buckets.assemble([req], bucket, 1, msa_depth=MSA_ROWS,
+                                    device="cuda")
+        kernel = policy.spec_for(bucket)
+        result, k2, k1, seconds, peak = count_fold(
+            lambda: ex.run(batch, NUM_RECYCLES, kernel=kernel))
+        log(f"executor fold {length} residues (bucket {bucket}, "
+            f"{'dense' if kernel is None else kernel.label}): "
+            f"{seconds * 1e3:.1f} ms wall, peak memory "
+            f"{peak / 2**30:.3f} GiB, K2 launches {k2}, K1 launches {k1}")
+        check_result(result, bucket)
+        want = (per_fold, cfg.depth * (NUM_RECYCLES + 1)) \
+            if kernel is not None else (0, 4 * cfg.depth * (NUM_RECYCLES + 1))
+        if (k2, k1) != want:
+            raise AssertionError(f"fold of {length} launched K2 {k2} and K1 "
+                                 f"{k1} times, expected {want}")
+        if kernel is not None:
+            k2_total, k1_total = k2_total + k2, k1_total + k1
+            sparse_batch = batch
+
+    # the contact flow: first pass under the static spec, the rest of
+    # the recycles under a spec planned from that pass's distogram
+    n = SPARSE_LENGTHS[-1]
+    state, _, _, seconds, _ = count_fold(
+        lambda: ex.run_init(sparse_batch, kernel=spec))
+    log(f"executor step-mode init {n} residues: {seconds * 1e3:.1f} ms")
+    t0 = time.perf_counter()
+    contact = policy.contact_spec_for(
+        SPARSE_BUCKET, state.distogram.float().cpu().numpy(), lengths=[n])
+    plan_s = time.perf_counter() - t0
+    if contact is None or contact.label == spec.label:
+        raise AssertionError("the contact re-plan gave no new spec")
+    log(f"executor contact re-plan: {contact.label}, live "
+        f"{contact.live_fraction:.4f} ({int(contact.pattern_array().sum())}"
+        f" blocks), planned on the host in {plan_s * 1e3:.1f} ms")
+    for i in range(NUM_RECYCLES):
+        state, k2, k1, seconds, _ = count_fold(
+            lambda: ex.run_step(sparse_batch, state, i, kernel=contact))
+        log(f"executor contact step {i}: {seconds * 1e3:.1f} ms wall, "
+            f"K2 launches {k2}, K1 launches {k1}")
+        if (k2, k1) != (3 * cfg.depth, cfg.depth):
+            raise AssertionError(f"contact step launched K2 {k2} and K1 "
+                                 f"{k1} times")
+    check_result(state, SPARSE_BUCKET)
+    stats = ex.stats()
+    keys = stats["keys"]
+    log(f"executor stats: hits {stats['hits']}, misses {stats['misses']}, "
+        f"evictions {stats['evictions']}, keys {keys}")
+    if not any(k[6] == "step" and k[7] == contact.label for k in keys):
+        raise AssertionError("no step key carries the contact label")
+    if stats["misses"] != len(set(keys)) or stats["evictions"]:
+        raise AssertionError("misses must equal the distinct keys")
+    return k2_total, k1_total, ex, sparse_batch, spec
 
 
 def main():
@@ -387,22 +716,44 @@ def main():
     name, count = phase_device()
     phase_build()
     worst = phase_check()
+    bs_worst = phase_check_block_sparse()
     timing = phase_time()
+    bs_timing = phase_time_block_sparse()
     phase_parity()
-    launches, per_fold, times, model, req = phase_serve()
+    phase_parity_block_sparse()
+    launches, times, model, cfg, req = phase_serve()
     log(f"serve: fold wall times {[round(s * 1e3, 1) for s in times]} ms")
-    phase_profile(model, req)
+    from alphafold2_tpu_torch import fold
+    phase_profile(lambda: fold(model, **req, num_recycles=NUM_RECYCLES),
+                  f"fold {LENGTHS[-1]} residues, bucket {BUCKET}")
+    bs_launches, k1_sparse, ex, batch, spec = phase_executor(model, cfg)
+    phase_profile(lambda: ex.run(batch, NUM_RECYCLES, kernel=spec),
+                  f"executor fold {SPARSE_LENGTHS[-1]} residues, bucket "
+                  f"{SPARSE_BUCKET} ({spec.label})")
     record = {"kernels": [{
         "name": "fused_attention",
         "route": "cuda",
         "source": "alphafold2_tpu_torch/csrc/fused_attention.cu",
         "replaces": "alphafold2_tpu/ops/attention.py:170",
         "launches": launches,
-        "launches_per_fold": per_fold,
+        "launches_per_fold": launches // len(LENGTHS),
+        "launches_per_fold_512": k1_sparse // len(SPARSE_LENGTHS),
         "max_abs_err": worst[torch.bfloat16],
         "max_err_f32": worst[torch.float32],
         "max_err_bf16": worst[torch.bfloat16],
         **timing,
+    }, {
+        "name": "block_sparse_attention",
+        "route": "cuda",
+        "source": "alphafold2_tpu_torch/csrc/block_sparse.cu",
+        "replaces": "alphafold2_tpu/ops/block_sparse.py:269",
+        "launches": bs_launches,
+        "launches_per_fold": bs_launches // len(SPARSE_LENGTHS),
+        "live_fraction": spec.live_fraction,
+        "max_abs_err": bs_worst[torch.bfloat16],
+        "max_err_f32": bs_worst[torch.float32],
+        "max_err_bf16": bs_worst[torch.bfloat16],
+        **bs_timing,
     }]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -119,3 +119,125 @@ def test_cuda_fold_matches_cpu_fold(cuda_device):
     assert pt_attn.launch_count.value == 4 * 2 * 2
     err = float((out.coords.cpu() - ref.coords)[:, :20].abs().max())
     assert err <= 1e-3, err
+
+
+def block_sparse_case(name, dtype, device, seed=0):
+    """Inputs of one K2 call: (q, k, v, plan, kwargs). Key masks with a
+    padded tail and one key row masked in full (its queries average over
+    their live keys)."""
+    from alphafold2_tpu_torch.ops import block_sparse as pt_bs
+    b_rows, rep, heads, n, d, block, window = {
+        "small": (2, 3, 2, 64, 16, 16, 1),
+        "d32_b64": (2, 2, 2, 256, 32, 64, 0),
+        "d128_b128": (1, 2, 2, 256, 128, 128, 0),
+        "d64_b128": (1, 3, 4, 512, 64, 128, 1),
+        # the 512 bucket's MSA row attention under the default policy
+        "msa_row_512": (1, 5, 8, 512, 64, 32, 1),
+    }[name]
+    g = torch.Generator().manual_seed(seed)
+    b = b_rows * rep * heads
+    q, k = (torch.randn(b, n, d, generator=g) * 0.5 for _ in range(2))
+    v = torch.randn(b, n, d, generator=g)
+    bias = torch.randn(b_rows * heads, n, n, generator=g)
+    k_mask = torch.arange(n)[None] < torch.randint(
+        n // 2, n + 1, (b // heads, 1), generator=g)
+    k_mask[-1] = False
+    plan = pt_bs.BlockPlan.build(
+        pt_bs.banded_block_pattern(n // block, window, 1), block, device)
+    to = lambda t: t.to(device, dtype)
+    return (to(q), to(k), to(v), plan,
+            dict(bias=bias.to(device), bias_repeat=rep,
+                 k_mask=k_mask.to(device), heads=heads, scale=1.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_sparse_kernel_matches_plain(cuda_device, dtype):
+    """K2 against its plain version at every row (the two share the
+    contract, masked keys included), on the same input values computed
+    in fp32: atol 1e-4 for fp32, 2e-2 for bf16 (the output's rounding).
+    One call takes the default scale."""
+    from alphafold2_tpu_torch.ops import block_sparse as pt_bs
+    dt = getattr(torch, dtype)
+    atol = 1e-4 if dt == torch.float32 else 2e-2
+    for name in ("small", "d32_b64", "d128_b128", "d64_b128",
+                 "msa_row_512"):
+        for scale in ((1.0, None) if name == "small" else (1.0,)):
+            q, k, v, plan, kw = block_sparse_case(name, dt, cuda_device)
+            kw["scale"] = scale
+            before = pt_bs.launch_count.value
+            out = pt_bs.block_sparse_attention(q, k, v, plan, **kw)
+            torch.cuda.synchronize()
+            assert pt_bs.launch_count.value == before + 1
+            assert out.dtype == dt
+            ref = pt_bs.block_sparse_reference(q.float(), k.float(),
+                                               v.float(), plan, **kw)
+            err = float((out.float() - ref).abs().max())
+            assert err <= atol, f"{name}: max abs err {err} > {atol}"
+
+
+@pytest.mark.gpu
+def test_block_sparse_kernel_refuses_misfits(cuda_device):
+    """On the card there is no fallback: a shape or type the kernel does
+    not take raises before any launch."""
+    from alphafold2_tpu_torch.ops import block_sparse as pt_bs
+    q, k, v, plan, kw = block_sparse_case("small", torch.float32,
+                                          cuda_device)
+    before = pt_bs.launch_count.value
+    with pytest.raises(ValueError, match="head width"):
+        pt_bs.block_sparse_attention(q[..., :8].contiguous(),
+                                     k[..., :8].contiguous(),
+                                     v[..., :8].contiguous(), plan, **kw)
+    with pytest.raises(TypeError):
+        pt_bs.block_sparse_attention(q.half(), k.half(), v.half(), plan,
+                                     **kw)
+    with pytest.raises(ValueError, match="plan covers"):
+        pt_bs.block_sparse_attention(q[:, :32].contiguous(),
+                                     k[:, :32].contiguous(),
+                                     v[:, :32].contiguous(), plan,
+                                     **dict(kw, bias=None, k_mask=None))
+    assert pt_bs.launch_count.value == before
+
+
+@pytest.mark.gpu
+def test_executor_folds_512_bucket_through_k2(cuda_device):
+    """The default ModelConfig under the default kernel policy: a
+    437-residue request in the 512 bucket launches K2 in every residue
+    self-attention (3 per layer and pass: 72 with 3 recycles) and K1 only
+    in the MSA column attention (24)."""
+    from alphafold2_tpu_torch import ModelConfig
+    from alphafold2_tpu_torch.data.synthetic import synthetic_requests
+    from alphafold2_tpu_torch.ops import block_sparse as pt_bs
+    from alphafold2_tpu_torch.serve.bucketing import (BucketPolicy,
+                                                      default_policy)
+    from alphafold2_tpu_torch.serve.executor import FoldExecutor
+    from alphafold2_tpu_torch.serve.kernelpolicy import KernelPolicy
+
+    cfg = ModelConfig(predict_coords=True)
+    model = cfg.build(generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(1)
+        for p in model.parameters():
+            p.add_((torch.randn(p.shape, generator=g) * 0.05).to(p.device))
+    edges = default_policy().edges
+    policy = KernelPolicy.from_model_config(cfg, edges)
+    spec = policy.spec_for(512)
+    assert spec is not None and policy.spec_for(256) is None
+    (req,) = synthetic_requests(np.random.default_rng(2), num=1,
+                                lengths=(437,), msa_depth=5)
+    batch, _ = BucketPolicy(edges).assemble([req], 512, 1, msa_depth=5)
+    ex = FoldExecutor(model)
+    pt_attn.launch_count.reset()
+    pt_bs.launch_count.reset()
+    out = ex.run(batch, 3, kernel=spec)
+    assert (pt_bs.launch_count.value, pt_attn.launch_count.value) == \
+        (72, 24)
+    assert tuple(out.coords.shape) == (1, 512, 3)
+    assert torch.isfinite(out.coords).all()
+    conf = out.confidence
+    assert ((conf >= 0) & (conf <= 1)).all()
+    assert ex.stats()["keys"][0][7] == spec.label
+    # a warm-up batch: zeros, every position masked
+    zero = {k: torch.zeros_like(v) for k, v in batch.items()}
+    state = ex.run_init(zero, kernel=spec)
+    assert torch.isfinite(state.coords).all()

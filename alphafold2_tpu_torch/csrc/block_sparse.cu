@@ -16,66 +16,59 @@
 // (i / (bias_repeat * heads)) * heads + i % heads, and only the tiles of
 // live blocks are read. k_mask is (B / heads, N) bytes; a masked key's
 // logit is REPLACED by -1e9 after the bias add. There is no query mask.
-// Softmax and both products run in fp32; the output is written in the
-// input type.
+// `scale` multiplies the fp32 logits, never q before it is rounded. The
+// softmax runs in fp32; the output is written in the input type.
 //
 // What bounds it on this card: at the 512-residue bucket's triangle
-// shape (B=4096, N=512, D=64, bf16, 74 of 256 blocks live) the call reads
-// q, k, v and writes out, ~1.07 GB, against ~80 GFLOP of live work, so on
-// the tensor cores it would be bound by device-memory bytes. This first
-// version does both products with fp32 FMAs on the CUDA cores, so it is
-// bound by FMA issue instead.
+// shape (B=4096, N=512, D=64, bf16, 74 of 256 blocks live) the call must
+// move 1076.4 MB (q, k, v, out, the live bias tiles, the key mask and the
+// plan), 0.3213 ms at 3.35 TB/s, against 79.457 GFLOP of live work,
+// 0.0803 ms on the bf16 tensor cores: it is bound by device-memory bytes.
 //
 // What the design does about it: the Pallas grid (B, nqb, T) pads every
 // row to T, the widest row's live count, and idles on padded slots; here
-// one block of threads owns one (batch*head, query block) and loops over
-// that row's own live count only. Each thread owns one query row, held in
-// registers with its fp32 output accumulator (as in fused_attention.cu).
-// Per live key block the threads stage k, v, the bias tile and the key
-// mask flags through shared memory in tiles of up to 32 keys and run an
-// online softmax (running max and denominator, rescaled once per kChunk
-// keys); the output is written once, after the last live block.
-// Tensor-core products (mma/wgmma), TMA and balancing the global row
-// against the banded rows are left for a later change.
+// each (batch*head, query block) unit loops over that row's own live
+// count only, reading the plan on the device. bf16 (the fold path) runs
+// on the shared tensor-core tile of attention_tile.cuh: mma.sync products
+// with fp32 accumulators, k and v kept bf16 in padded shared memory and
+// brought in by cp.async in a two-stage ring (the next live block's copy
+// overlaps this one's products), the online softmax in registers, the
+// live bias tiles read straight from L2. A key tile is one live block, or
+// a half (a quarter at D = 128) of a 128 block. Units are sized so that no
+// block of threads is one warp: block 16 puts four query blocks of one
+// warp each into a block of threads, block 32 two query blocks of two
+// warps, block 64 one of four warps, and block 128 two units of four
+// warps per query block. fp32 (the small parity folds) keeps the first
+// design: one thread per query row with fp32 FMAs on the CUDA cores.
+//
+// What is left: wgmma with TMA and an mbarrier ring, persistent blocks,
+// and balancing the global row (all live blocks) against the banded rows
+// (three or four).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tile.cuh"
+
 namespace {
 
-constexpr float kMaskValue = -1e9f;
-constexpr int kChunk = 8;   // keys per online-softmax rescale
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using af2tile::kMaskValue;
+constexpr int kChunk = 8;   // keys per online-softmax rescale (fp32)
 
 // BQ queries per thread block (the query block, or half of a 128 block at
 // D = 128 so the static shared memory stays under 48 KB); BK keys per
 // shared-memory tile.
-template <typename T, int D, int BQ>
+template <int D, int BQ>
 __global__ void __launch_bounds__(BQ)
-block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ bias,
+block_sparse_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ bias,
                     const uint8_t* __restrict__ k_mask,
                     const int* __restrict__ cols,
-                    const int* __restrict__ counts, T* __restrict__ out,
+                    const int* __restrict__ counts, float* __restrict__ out,
                     int n, int block, int t_max, int heads, int bias_repeat,
                     float scale, int nqb, int q_tiles) {
   constexpr int BK = BQ < 32 ? BQ : 32;
@@ -94,8 +87,8 @@ block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int mrow = bh / heads;
   const bool has_bias = bias != nullptr;
 
-  const T* kb = k + (size_t)bh * n * D;
-  const T* vb = v + (size_t)bh * n * D;
+  const float* kb = k + (size_t)bh * n * D;
+  const float* vb = v + (size_t)bh * n * D;
   const float* biasb = nullptr;
   if (has_bias) {
     const size_t brow = (size_t)(bh / (bias_repeat * heads)) * heads +
@@ -105,10 +98,10 @@ block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float qr[D];
   float o[D];
-  const T* qrow = q + ((size_t)bh * n + qi) * D;
+  const float* qrow = q + ((size_t)bh * n + qi) * D;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    qr[d] = to_f32(qrow[d]) * scale;
+    qr[d] = qrow[d] * scale;
     o[d] = 0.f;
   }
   float m = -INFINITY;
@@ -122,8 +115,8 @@ block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = tid; e < BK * D; e += BQ) {
         const int jj = e / D;
         const int d = e % D;
-        ks[jj][d] = to_f32(kb[(size_t)(j0 + jj) * D + d]);
-        vs[jj][d] = to_f32(vb[(size_t)(j0 + jj) * D + d]);
+        ks[jj][d] = kb[(size_t)(j0 + jj) * D + d];
+        vs[jj][d] = vb[(size_t)(j0 + jj) * D + d];
       }
       if (has_bias) {
         for (int e = tid; e < BQ * BK; e += BQ) {
@@ -184,87 +177,162 @@ block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // l >= 1: every row has a live block, and its largest logit gives p = 1
   const float inv = 1.f / l;
-  T* orow = out + ((size_t)bh * n + qi) * D;
+  float* orow = out + ((size_t)bh * n + qi) * D;
 #pragma unroll
-  for (int d = 0; d < D; ++d) orow[d] = from_f32<T>(o[d] * inv);
+  for (int d = 0; d < D; ++d) orow[d] = o[d] * inv;
 }
 
-template <typename T, int D, int BQ>
-int launch(const void* q, const void* k, const void* v, const float* bias,
-           const uint8_t* k_mask, const int* cols, const int* counts,
-           void* out, int b, int n, int block, int t_max, int heads,
-           int bias_repeat, float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v,
+               const float* bias, const uint8_t* k_mask, const int* cols,
+               const int* counts, void* out, int b, int n, int d, int block,
+               int t_max, int heads, int bias_repeat, float scale,
+               cudaStream_t stream) {
   const int nqb = n / block;
-  const int q_tiles = block / BQ;
+  // a 128 block runs as two thread blocks of 64 queries at D = 128
+  const int bq = (block == 128 && d >= 128) ? 64 : block;
+  const int q_tiles = block / bq;
   const long long blocks = (long long)b * nqb * q_tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  block_sparse_kernel<T, D, BQ><<<(unsigned)blocks, BQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, k_mask, cols, counts,
-      static_cast<T*>(out), n, block, t_max, heads, bias_repeat, scale, nqb,
-      q_tiles);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(out);
+#define AF2_F32(D, BQ)                                                      \
+  block_sparse_kernel<D, BQ><<<(unsigned)blocks, BQ, 0, stream>>>(         \
+      qf, kf, vf, bias, k_mask, cols, counts, of, n, block, t_max, heads,  \
+      bias_repeat, scale, nqb, q_tiles)
+#define AF2_F32_D(D)                                                        \
+  switch (bq) {                                                             \
+    case 16: AF2_F32(D, 16); break;                                         \
+    case 32: AF2_F32(D, 32); break;                                         \
+    case 64: AF2_F32(D, 64); break;                                         \
+    case 128: AF2_F32(D, 128); break;                                       \
+    default: return -1;                                                     \
+  }
+  switch (d) {
+    case 16: AF2_F32_D(16); break;
+    case 32: AF2_F32_D(32); break;
+    case 64: AF2_F32_D(64); break;
+    case 128:
+      switch (bq) {
+        case 16: AF2_F32(128, 16); break;
+        case 32: AF2_F32(128, 32); break;
+        case 64: AF2_F32(128, 64); break;
+        default: return -1;
+      }
+      break;
+    default: return -1;
+  }
+#undef AF2_F32_D
+#undef AF2_F32
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int dispatch_block(const void* q, const void* k, const void* v,
-                   const float* bias, const uint8_t* k_mask, const int* cols,
-                   const int* counts, void* out, int b, int n, int block,
-                   int t_max, int heads, int bias_repeat, float scale,
-                   cudaStream_t stream) {
-#define AF2_LAUNCH(BQ)                                                      \
-  return launch<T, D, BQ>(q, k, v, bias, k_mask, cols, counts, out, b, n,  \
-                          block, t_max, heads, bias_repeat, scale, stream)
-  switch (block) {
-    case 16: AF2_LAUNCH(16);
-    case 32: AF2_LAUNCH(32);
-    case 64: AF2_LAUNCH(64);
-    case 128:
-      if constexpr (D >= 128) {
-        AF2_LAUNCH(64);
-      } else {
-        AF2_LAUNCH(128);
-      }
-    default:
-      return -1;
+// The bf16 kernel: groups of WG warps on the shared tensor-core tile, G
+// groups (each on its own (batch*head, query block, part) unit) per block.
+template <int D, int WG, int G, int BK>
+__global__ void __launch_bounds__(WG * G * 32)
+block_sparse_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const float* __restrict__ bias,
+                        const uint8_t* __restrict__ k_mask,
+                        const int* __restrict__ cols,
+                        const int* __restrict__ counts,
+                        __nv_bfloat16* __restrict__ out, int units, int n,
+                        int block, int t_max, int heads, int bias_repeat,
+                        float scale, int nqb, int q_parts) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int warp = threadIdx.x / 32;
+  const int group = warp / WG;
+  const int unit = blockIdx.x * G + group;
+  if (unit >= units) return;   // groups never share a barrier
+  const int qp = unit % q_parts;
+  const int row = unit / q_parts;
+  const int qb = row % nqb;
+  const int bh = row / nqb;
+  af2tile::TileArgs a;
+  a.q = q + (size_t)bh * n * D;
+  a.k = k + (size_t)bh * n * D;
+  a.v = v + (size_t)bh * n * D;
+  a.out = out + (size_t)bh * n * D;
+  a.bias = nullptr;
+  if (bias != nullptr) {
+    const size_t brow = (size_t)(bh / (bias_repeat * heads)) * heads +
+                        bh % heads;
+    a.bias = bias + brow * n * n;
   }
-#undef AF2_LAUNCH
+  a.q_mask = nullptr;
+  a.k_mask = k_mask == nullptr ? nullptr
+                               : k_mask + (size_t)(bh / heads) * n;
+  a.cols = cols + (size_t)qb * t_max;
+  a.block = block;
+  a.q0 = qb * block + qp * 16 * WG;
+  a.nq = n;
+  a.nk = n;
+  a.num_tiles = counts[qb] * (block / BK);
+  a.scale = scale;
+  af2tile::attend<D, WG, BK, false>(
+      a, smem + group * af2tile::group_smem_bytes<D, WG, BK>(),
+      group, warp % WG, threadIdx.x % 32);
 }
 
-template <typename T>
-int dispatch_d(int d, const void* q, const void* k, const void* v,
+template <int D, int WG, int G, int BK>
+int launch_mma(const void* q, const void* k, const void* v,
                const float* bias, const uint8_t* k_mask, const int* cols,
                const int* counts, void* out, int b, int n, int block,
                int t_max, int heads, int bias_repeat, float scale,
                cudaStream_t stream) {
-  switch (d) {
-    case 16:
-      return dispatch_block<T, 16>(q, k, v, bias, k_mask, cols, counts, out,
-                                   b, n, block, t_max, heads, bias_repeat,
-                                   scale, stream);
-    case 32:
-      return dispatch_block<T, 32>(q, k, v, bias, k_mask, cols, counts, out,
-                                   b, n, block, t_max, heads, bias_repeat,
-                                   scale, stream);
-    case 64:
-      return dispatch_block<T, 64>(q, k, v, bias, k_mask, cols, counts, out,
-                                   b, n, block, t_max, heads, bias_repeat,
-                                   scale, stream);
-    case 128:
-      return dispatch_block<T, 128>(q, k, v, bias, k_mask, cols, counts,
-                                    out, b, n, block, t_max, heads,
-                                    bias_repeat, scale, stream);
-    default:
-      return -1;
+  constexpr int bytes = G * af2tile::group_smem_bytes<D, WG, BK>();
+  auto kernel = block_sparse_mma_kernel<D, WG, G, BK>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
   }
+  const int nqb = n / block;
+  const int q_parts = block / (16 * WG);
+  const long long units = (long long)b * nqb * q_parts;
+  if (units > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)((units + G - 1) / G), WG * G * 32, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), bias, k_mask, cols, counts,
+      static_cast<__nv_bfloat16*>(out), (int)units, n, block, t_max, heads,
+      bias_repeat, scale, nqb, q_parts);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 unit per block size (see the file note): query rows per unit
+// 16 * WG, G units per block of threads, key tiles of BK.
+template <int D>
+int dispatch_mma(const void* q, const void* k, const void* v,
+                 const float* bias, const uint8_t* k_mask, const int* cols,
+                 const int* counts, void* out, int b, int n, int block,
+                 int t_max, int heads, int bias_repeat, float scale,
+                 cudaStream_t stream) {
+  constexpr int BK = D >= 128 ? 32 : 64;
+#define AF2_MMA(WG, G, BK_)                                                 \
+  return launch_mma<D, WG, G, BK_>(q, k, v, bias, k_mask, cols, counts,    \
+                                   out, b, n, block, t_max, heads,         \
+                                   bias_repeat, scale, stream)
+  switch (block) {
+    case 16: AF2_MMA(1, 4, 16);
+    case 32: AF2_MMA(2, 2, 32);
+    case 64: AF2_MMA(4, 1, BK);
+    case 128: AF2_MMA(4, 1, BK);
+    default: return -1;
+  }
+#undef AF2_MMA
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. bias and k_mask may be null; cols and
-// counts are the plan on the device. Returns cudaGetLastError() after the
-// launch (0 on success), or -1 for a head width, block, shape or dtype the
-// kernel does not take.
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the
+// tensor-core tile). bias and k_mask may be null; cols and counts are the
+// plan on the device. Returns cudaGetLastError() after the launch (0 on
+// success), or -1 for a head width, block, shape or dtype the kernel does
+// not take.
 extern "C" int af2_block_sparse_attention(
     const void* q, const void* k, const void* v, const float* bias,
     const uint8_t* k_mask, const int* cols, const int* counts, void* out,
@@ -274,11 +342,18 @@ extern "C" int af2_block_sparse_attention(
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(d, q, k, v, bias, k_mask, cols, counts, out, b,
-                             n, block, t_max, heads, bias_repeat, scale, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, bias, k_mask, cols, counts,
-                                     out, b, n, block, t_max, heads,
-                                     bias_repeat, scale, s);
-  return -1;
+    return launch_f32(q, k, v, bias, k_mask, cols, counts, out, b, n, d,
+                      block, t_max, heads, bias_repeat, scale, s);
+  if (dtype != 1) return -1;
+#define AF2_D(D)                                                            \
+  return dispatch_mma<D>(q, k, v, bias, k_mask, cols, counts, out, b, n,   \
+                         block, t_max, heads, bias_repeat, scale, s)
+  switch (d) {
+    case 16: AF2_D(16);
+    case 32: AF2_D(32);
+    case 64: AF2_D(64);
+    case 128: AF2_D(128);
+    default: return -1;
+  }
+#undef AF2_D
 }

@@ -13,63 +13,59 @@
 // i % heads. q_mask / k_mask are (B / heads, N) bytes; the pair (i, j) is
 // valid when both are set. The bias is added first and masked logits are
 // then REPLACED by -1e9 (not -inf), so a fully masked query row averages
-// over every key, exactly as the plain version does. Softmax and both
-// products run in fp32; the output is written in the input type.
+// over every key, exactly as the plain version does. Keys past Nk are
+// -inf. The softmax runs in fp32; the output is written in the input type.
 //
 // What bounds it on this card: at the main path's triangle shape (B=2048,
-// N=256, D=64, bf16) the call moves ~270 MB (q, k, v, out, bias, masks)
-// and does ~34 GFLOP, so on the tensor cores it would be bound by
-// device-memory bytes. This first version does both products with fp32
-// FMAs on the CUDA cores, so it is bound by FMA issue instead.
+// N=256, D=64, bf16) the call must move 270.7 MB (q, k, v, out, the bias
+// and the masks), 0.0808 ms at 3.35 TB/s, against 34.36 GFLOP, 0.0347 ms
+// on the bf16 tensor cores: it is bound by device-memory bytes.
 //
-// What the design does about it: the TPU kernel kept a whole key row in
-// VMEM. Here one block owns one (batch*head, tile of BQ queries); each
-// thread owns one query row, held in registers with its fp32 output
-// accumulator. The block streams the keys through shared memory in tiles
-// of kBK (k, v, the bias tile and the key-mask bits), so every k/v element
-// is read from device memory once per query tile and no N x N logits are
-// ever written. An online softmax (running max and denominator, rescaled
-// once per kChunk keys) replaces the resident row. The bias is replayed
-// by index, never materialised per fold. Tensor-core products (mma/wgmma)
-// and TMA are left for a later change.
+// What the design does about it. bf16 (the fold path) runs on the shared
+// tensor-core tile of attention_tile.cuh: mma.sync products with fp32
+// accumulators, k and v kept bf16 in padded shared memory and brought in
+// by cp.async in a two-stage ring, so each tile's copy overlaps the
+// previous tile's products, the online softmax in registers, the bias
+// replayed by index straight from L2 and never materialised per fold.
+// One thread block owns one (batch*head, 128 queries): eight warps of 16
+// rows, held to 128 registers so that two blocks share an SM, over key
+// tiles of 64 (at D = 128: 64 queries, four warps, key tiles of 32). The
+// loop is bound by latency more than by any unit's rate, so occupancy is
+// what this shape buys; on the card it beat 64-query blocks at ~170
+// registers (three blocks an SM) and 32-key tiles (PERF.md). Short query
+// axes (the MSA column attention, N = 5) take one warp per batch*head
+// row, four such warps to a block, over key tiles of 16. fp32 (the small
+// parity folds) keeps the first design: one thread per query row, fp32
+// FMAs on the CUDA cores, keys streamed through shared memory in tiles of
+// 32, online softmax rescaled once per 8 keys; no TF32.
+//
+// What is left: wgmma with TMA and an mbarrier ring (64-row warpgroup
+// tiles), persistent blocks that walk many (batch*head, query tile) units
+// so one unit's epilogue overlaps the next one's loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tile.cuh"
+
 namespace {
 
-constexpr float kMaskValue = -1e9f;
-constexpr int kBK = 32;     // keys per shared-memory tile
-constexpr int kChunk = 8;   // keys per online-softmax rescale
+using af2tile::kMaskValue;
+constexpr int kBK = 32;     // keys per shared-memory tile (fp32 kernel)
+constexpr int kChunk = 8;   // keys per online-softmax rescale (fp32)
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T, int D, int BQ>
+// The fp32 kernel: one thread per query row.
+template <int D, int BQ>
 __global__ void __launch_bounds__(BQ)
-fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v,
+fused_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
                        const float* __restrict__ bias,
                        const uint8_t* __restrict__ q_mask,
                        const uint8_t* __restrict__ k_mask,
-                       T* __restrict__ out, int nq, int nk, int heads,
+                       float* __restrict__ out, int nq, int nk, int heads,
                        int bias_repeat, int q_tiles) {
   __shared__ __align__(16) float ks[kBK][D];
   __shared__ __align__(16) float vs[kBK][D];
@@ -84,9 +80,9 @@ fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int mrow = bh / heads;
   const bool has_bias = bias != nullptr;
 
-  const T* qb = q + (size_t)bh * nq * D;
-  const T* kb = k + (size_t)bh * nk * D;
-  const T* vb = v + (size_t)bh * nk * D;
+  const float* qb = q + (size_t)bh * nq * D;
+  const float* kb = k + (size_t)bh * nk * D;
+  const float* vb = v + (size_t)bh * nk * D;
   const float* biasb = nullptr;
   if (has_bias) {
     const size_t brow = (size_t)(bh / (bias_repeat * heads)) * heads +
@@ -98,7 +94,7 @@ fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float o[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    qr[d] = q_in ? to_f32(qb[(size_t)qi * D + d]) : 0.f;
+    qr[d] = q_in ? qb[(size_t)qi * D + d] : 0.f;
     o[d] = 0.f;
   }
   const bool q_valid =
@@ -114,8 +110,8 @@ fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = j0 + jj;
       float kx = 0.f, vx = 0.f;
       if (j < nk) {
-        kx = to_f32(kb[(size_t)j * D + d]);
-        vx = to_f32(vb[(size_t)j * D + d]);
+        kx = kb[(size_t)j * D + d];
+        vx = vb[(size_t)j * D + d];
       }
       ks[jj][d] = kx;
       vs[jj][d] = vx;
@@ -190,63 +186,164 @@ fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (q_in) {
     const float inv = 1.f / l;
-    T* ob = out + ((size_t)bh * nq + qi) * D;
+    float* ob = out + ((size_t)bh * nq + qi) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) ob[d] = from_f32<T>(o[d] * inv);
+    for (int d = 0; d < D; ++d) ob[d] = o[d] * inv;
   }
 }
 
-template <typename T, int D, int BQ>
-int launch(const void* q, const void* k, const void* v, const float* bias,
-           const uint8_t* q_mask, const uint8_t* k_mask, void* out, int b,
-           int nq, int nk, int heads, int bias_repeat, cudaStream_t stream) {
-  const int q_tiles = (nq + BQ - 1) / BQ;
-  const long long blocks = (long long)b * q_tiles;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  fused_attention_kernel<T, D, BQ><<<(unsigned)blocks, BQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, q_mask, k_mask, static_cast<T*>(out),
-      nq, nk, heads, bias_repeat, q_tiles);
-  return (int)cudaGetLastError();
-}
 
-template <typename T, int D>
-int dispatch_bq(const void* q, const void* k, const void* v,
-                const float* bias, const uint8_t* q_mask,
-                const uint8_t* k_mask, void* out, int b, int nq, int nk,
-                int heads, int bias_repeat, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v,
+               const float* bias, const uint8_t* q_mask,
+               const uint8_t* k_mask, void* out, int b, int nq, int nk,
+               int d, int heads, int bias_repeat, cudaStream_t stream) {
   // short query axes (the MSA column attention has N = msa depth) take
   // one-warp blocks; D = 128 takes 64 queries so the static shared memory
   // stays under 48 KB
-  if (nq <= 32)
-    return launch<T, D, 32>(q, k, v, bias, q_mask, k_mask, out, b, nq, nk,
-                            heads, bias_repeat, stream);
-  if constexpr (D >= 128)
-    return launch<T, D, 64>(q, k, v, bias, q_mask, k_mask, out, b, nq, nk,
-                            heads, bias_repeat, stream);
-  else
-    return launch<T, D, 128>(q, k, v, bias, q_mask, k_mask, out, b, nq, nk,
-                             heads, bias_repeat, stream);
+  const int bq = nq <= 32 ? 32 : (d >= 128 ? 64 : 128);
+  const int q_tiles = (nq + bq - 1) / bq;
+  const long long blocks = (long long)b * q_tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(out);
+#define AF2_F32(D, BQ)                                                      \
+  fused_attention_kernel<D, BQ><<<(unsigned)blocks, BQ, 0, stream>>>(      \
+      qf, kf, vf, bias, q_mask, k_mask, of, nq, nk, heads, bias_repeat,    \
+      q_tiles)
+#define AF2_F32_D(D)                                                        \
+  if (bq == 32) AF2_F32(D, 32);                                             \
+  else AF2_F32(D, 128)
+  switch (d) {
+    case 16: AF2_F32_D(16); break;
+    case 32: AF2_F32_D(32); break;
+    case 64: AF2_F32_D(64); break;
+    case 128:
+      if (bq == 32) AF2_F32(128, 32); else AF2_F32(128, 64);
+      break;
+    default: return -1;
+  }
+#undef AF2_F32_D
+#undef AF2_F32
+  return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(int d, const void* q, const void* k, const void* v,
+// The bf16 kernels: groups of WG warps on the shared tensor-core tile, G
+// groups (each on its own (batch*head, query tile) unit) per block.
+template <int D, int WG, int G, int BK>
+__device__ __forceinline__ void mma_units(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    const uint8_t* __restrict__ q_mask, const uint8_t* __restrict__ k_mask,
+    __nv_bfloat16* __restrict__ out, int units, int nq, int nk, int heads,
+    int bias_repeat, int q_tiles) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int warp = threadIdx.x / 32;
+  const int group = warp / WG;
+  const int unit = blockIdx.x * G + group;
+  if (unit >= units) return;   // groups never share a barrier
+  const int bh = unit / q_tiles;
+  const int mrow = bh / heads;
+  af2tile::TileArgs a;
+  a.q = q + (size_t)bh * nq * D;
+  a.k = k + (size_t)bh * nk * D;
+  a.v = v + (size_t)bh * nk * D;
+  a.out = out + (size_t)bh * nq * D;
+  a.bias = nullptr;
+  if (bias != nullptr) {
+    const size_t brow = (size_t)(bh / (bias_repeat * heads)) * heads +
+                        bh % heads;
+    a.bias = bias + brow * nq * nk;
+  }
+  a.q_mask = q_mask == nullptr ? nullptr : q_mask + (size_t)mrow * nq;
+  a.k_mask = k_mask == nullptr ? nullptr : k_mask + (size_t)mrow * nk;
+  a.cols = nullptr;
+  a.block = 0;
+  a.q0 = (unit % q_tiles) * 16 * WG;
+  a.nq = nq;
+  a.nk = nk;
+  a.num_tiles = (nk + BK - 1) / BK;
+  a.scale = 1.f;
+  af2tile::attend<D, WG, BK, true>(
+      a, smem + group * af2tile::group_smem_bytes<D, WG, BK>(),
+      group, warp % WG, threadIdx.x % 32);
+}
+
+#define AF2_MMA_PARAMS                                                      \
+  const __nv_bfloat16 *__restrict__ q, const __nv_bfloat16 *__restrict__ k, \
+      const __nv_bfloat16 *__restrict__ v, const float *__restrict__ bias,  \
+      const uint8_t *__restrict__ q_mask,                                   \
+      const uint8_t *__restrict__ k_mask, __nv_bfloat16 *__restrict__ out,  \
+      int units, int nq, int nk, int heads, int bias_repeat, int q_tiles
+#define AF2_MMA_ARGS                                                        \
+  q, k, v, bias, q_mask, k_mask, out, units, nq, nk, heads, bias_repeat,   \
+      q_tiles
+
+template <int D, int WG, int G, int BK>
+__global__ void __launch_bounds__(WG * G * 32)
+fused_attention_mma_kernel(AF2_MMA_PARAMS) {
+  mma_units<D, WG, G, BK>(AF2_MMA_ARGS);
+}
+
+// The 128-query tile: at most 128 registers a thread, so that two blocks
+// of eight warps share an SM (occupancy is what this latency-bound loop
+// gains from; left to itself the compiler takes more and fits one).
+template <int D, int BK>
+__global__ void __launch_bounds__(256, 2)
+fused_attention_mma_wide_kernel(AF2_MMA_PARAMS) {
+  mma_units<D, 8, 1, BK>(AF2_MMA_ARGS);
+}
+
+template <int D, int WG, int G, int BK>
+int launch_mma(const void* q, const void* k, const void* v,
                const float* bias, const uint8_t* q_mask,
                const uint8_t* k_mask, void* out, int b, int nq, int nk,
                int heads, int bias_repeat, cudaStream_t stream) {
-  switch (d) {
-    case 16:
-      return dispatch_bq<T, 16>(q, k, v, bias, q_mask, k_mask, out, b, nq,
-                                nk, heads, bias_repeat, stream);
-    case 32:
-      return dispatch_bq<T, 32>(q, k, v, bias, q_mask, k_mask, out, b, nq,
-                                nk, heads, bias_repeat, stream);
-    case 64:
-      return dispatch_bq<T, 64>(q, k, v, bias, q_mask, k_mask, out, b, nq,
-                                nk, heads, bias_repeat, stream);
-    case 128:
-      return dispatch_bq<T, 128>(q, k, v, bias, q_mask, k_mask, out, b, nq,
-                                 nk, heads, bias_repeat, stream);
+  constexpr int bytes = G * af2tile::group_smem_bytes<D, WG, BK>();
+  auto kernel = [] {
+    if constexpr (WG == 8)
+      return fused_attention_mma_wide_kernel<D, BK>;
+    else
+      return fused_attention_mma_kernel<D, WG, G, BK>;
+  }();
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int q_tiles = (nq + 16 * WG - 1) / (16 * WG);
+  const long long units = (long long)b * q_tiles;
+  if (units > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)((units + G - 1) / G), WG * G * 32, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), bias, q_mask, k_mask,
+      static_cast<__nv_bfloat16*>(out), (int)units, nq, nk, heads,
+      bias_repeat, q_tiles);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 layouts. 1: eight warps on 128 queries of one batch*head row,
+// key tiles of 64 (at D = 128: four warps on 64 queries, key tiles of
+// 32); 2: one warp per batch*head row (16 queries), four rows to a block,
+// key tiles of 16. Layout 0 is the shape rule: 2 for Nq <= 16 (the MSA
+// column attention, where a 128-row tile would be 96 % padding), else 1.
+template <int D>
+int dispatch_mma(int layout, const void* q, const void* k, const void* v,
+                 const float* bias, const uint8_t* q_mask,
+                 const uint8_t* k_mask, void* out, int b, int nq, int nk,
+                 int heads, int bias_repeat, cudaStream_t stream) {
+  constexpr int WG = D >= 128 ? 4 : 8;
+  constexpr int BK = D >= 128 ? 32 : 64;
+  if (layout == 0) layout = nq <= 16 ? 2 : 1;
+  switch (layout) {
+    case 1:
+      return launch_mma<D, WG, 1, BK>(q, k, v, bias, q_mask, k_mask, out, b,
+                                      nq, nk, heads, bias_repeat, stream);
+    case 2:
+      return launch_mma<D, 1, 4, 16>(q, k, v, bias, q_mask, k_mask, out, b,
+                                     nq, nk, heads, bias_repeat, stream);
     default:
       return -1;
   }
@@ -254,22 +351,39 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. bias, q_mask and k_mask may be null.
-// Returns cudaGetLastError() after the launch (0 on success), or -1 for a
-// head width or dtype the kernel does not take.
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
+// tile). layout: 0 takes the shape rule; 1 or 2 forces a bf16 layout (see
+// dispatch_mma; for measuring the rule on the card). bias, q_mask and
+// k_mask may be null. Returns cudaGetLastError() after the launch (0 on
+// success), or -1 for a head width, dtype or layout the kernel does not
+// take.
 extern "C" int af2_fused_attention(const void* q, const void* k,
                                    const void* v, const float* bias,
                                    const uint8_t* q_mask,
                                    const uint8_t* k_mask, void* out, int b,
                                    int nq, int nk, int d, int heads,
-                                   int bias_repeat, int dtype,
+                                   int bias_repeat, int dtype, int layout,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(d, q, k, v, bias, q_mask, k_mask, out, b, nq,
-                             nk, heads, bias_repeat, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, bias, q_mask, k_mask, out,
-                                     b, nq, nk, heads, bias_repeat, s);
-  return -1;
+    return layout != 0 ? -1
+                       : launch_f32(q, k, v, bias, q_mask, k_mask, out, b,
+                                    nq, nk, d, heads, bias_repeat, s);
+  if (dtype != 1) return -1;
+  switch (d) {
+    case 16:
+      return dispatch_mma<16>(layout, q, k, v, bias, q_mask, k_mask, out, b,
+                              nq, nk, heads, bias_repeat, s);
+    case 32:
+      return dispatch_mma<32>(layout, q, k, v, bias, q_mask, k_mask, out, b,
+                              nq, nk, heads, bias_repeat, s);
+    case 64:
+      return dispatch_mma<64>(layout, q, k, v, bias, q_mask, k_mask, out, b,
+                              nq, nk, heads, bias_repeat, s);
+    case 128:
+      return dispatch_mma<128>(layout, q, k, v, bias, q_mask, k_mask, out,
+                               b, nq, nk, heads, bias_repeat, s);
+    default:
+      return -1;
+  }
 }

@@ -1,16 +1,21 @@
-"""Wall time of one dense 256-bucket fold on the card, for comparing two
-checkouts of the port on one machine.
+"""Wall time of one fold on the card, for comparing two checkouts of the
+port on one machine.
 
     python3 alphafold2_tpu_torch/fold_wall.py [--root DIR] [--folds N]
+                                              [--bucket 256|512]
 
 `--root` is the checkout whose `alphafold2_tpu_torch` is imported (by
 default the one holding this file), so an unpacked older commit can be
 timed by the same script: run it for the older tree and this one in
 turn, in one session on one card. The fold is the default ModelConfig
-(bf16 trunk) with seeded random weights, a request of 131 residues
-padded to the 256 bucket, 5 MSA rows, 3 recycles, as chip_smoke.py
-folds it. Prints one JSON line: the root, each timed fold's wall time
-(synchronised, ms) and their median.
+(bf16 trunk) with seeded random weights, 5 MSA rows and 3 recycles, as
+chip_smoke.py folds it: `--bucket 256` (the default) folds a request of
+131 residues padded to the 256 bucket through `predict.fold` (dense, K1
+only); `--bucket 512` folds a request of 437 residues through
+`serve.executor.FoldExecutor` under the default buckets and the default
+`KernelPolicy` (the 512 bucket block-sparse: K2 and K1). Prints one JSON
+line: the root, the bucket, each timed fold's wall time (synchronised,
+ms) and their median.
 """
 
 import argparse
@@ -26,6 +31,7 @@ def main():
     ap.add_argument("--root", default=here)
     ap.add_argument("--folds", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--bucket", type=int, choices=(256, 512), default=256)
     args = ap.parse_args()
     # import the package from --root, never from beside this file
     sys.path[0] = os.path.abspath(args.root)
@@ -45,21 +51,38 @@ def main():
     with torch.no_grad():
         for p in model.parameters():
             p.add_((torch.randn(p.shape, generator=g) * 0.05).to(p.device))
-    req = synthetic_batch(np.random.default_rng(2), seq_len=131,
-                          msa_depth=5, with_coords=False)
-    req = {key: pad_to(val, 256, axis=val.dim() - 1)
-           for key, val in req.items()}
+    if args.bucket == 256:
+        req = synthetic_batch(np.random.default_rng(2), seq_len=131,
+                              msa_depth=5, with_coords=False)
+        req = {key: pad_to(val, 256, axis=val.dim() - 1)
+               for key, val in req.items()}
+        run = lambda: fold(model, **req, num_recycles=3)
+    else:
+        from alphafold2_tpu_torch.data.synthetic import synthetic_requests
+        from alphafold2_tpu_torch.serve.bucketing import (BucketPolicy,
+                                                          default_policy)
+        from alphafold2_tpu_torch.serve.executor import FoldExecutor
+        from alphafold2_tpu_torch.serve.kernelpolicy import KernelPolicy
+        edges = default_policy().edges
+        spec = KernelPolicy.from_model_config(cfg, edges).spec_for(512)
+        (request,) = synthetic_requests(np.random.default_rng(2), num=1,
+                                        lengths=(437,), msa_depth=5)
+        batch, _ = BucketPolicy(edges).assemble([request], 512, 1,
+                                                msa_depth=5, device="cuda")
+        ex = FoldExecutor(model)
+        run = lambda: ex.run(batch, 3, kernel=spec)
     walls = []
     for i in range(args.warmup + args.folds):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fold(model, **req, num_recycles=3)
+        out = run()
         torch.cuda.synchronize()
         if i >= args.warmup:
             walls.append((time.perf_counter() - t0) * 1e3)
     if not torch.isfinite(out.coords).all():
         raise AssertionError("non-finite coords")
-    print(json.dumps({"root": args.root, "wall_ms": walls,
+    print(json.dumps({"root": args.root, "bucket": args.bucket,
+                      "wall_ms": walls,
                       "median_ms": float(np.median(walls))}), flush=True)
     return 0
 

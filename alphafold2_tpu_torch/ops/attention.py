@@ -17,8 +17,13 @@ Contract (shared by the CUDA kernel and the plain version):
 - Softmax runs in fp32; the output has q's dtype.
 
 `fused_attention` takes the CUDA kernel (`csrc/fused_attention.cu`) for
-CUDA tensors and the plain version for CPU tensors. On the card there is
-no fallback: a tensor the kernel does not take raises.
+CUDA tensors and the plain version for CPU tensors: bf16 runs on the
+tensor-core tile (`csrc/attention_tile.cuh`), fp32 on the CUDA cores. On
+the card there is no fallback: a tensor the kernel does not take raises.
+
+In bf16 the kernel rounds the softmax weights to bf16 before the product
+with v, as the plain version does (`attn.to(q.dtype)`), but keeps the
+logits in fp32 where the plain version rounds them.
 """
 
 from __future__ import annotations
@@ -127,13 +132,15 @@ def _library():
     if fn.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k, v, bias, q_mask, k_mask, heads, bias_repeat):
-    """One launch of the CUDA kernel on the current stream."""
+def _launch(q, k, v, bias, q_mask, k_mask, heads, bias_repeat, layout=0):
+    """One launch of the CUDA kernel on the current stream. `layout` 0
+    takes the kernel's own shape rule; 1 or 2 forces one of its bf16 layouts
+    (`dispatch_mma` in the source), for timing the rule on the card."""
     _check(q, k, v, bias, q_mask, k_mask, heads, bias_repeat)
     fn = _library()
     b, nq, d = q.shape
@@ -144,10 +151,11 @@ def _launch(q, k, v, bias, q_mask, k_mask, heads, bias_repeat):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(q_mask),
                  ptr(k_mask), ptr(out), b, nq, nk, d, heads, bias_repeat,
-                 _DTYPE_CODES[q.dtype], stream)
+                 _DTYPE_CODES[q.dtype], layout, stream)
     if err != 0:
         raise RuntimeError(f"fused_attention kernel launch failed: CUDA "
-                           f"error {err} (B={b}, Nq={nq}, Nk={nk}, D={d})")
+                           f"error {err} (B={b}, Nq={nq}, Nk={nk}, D={d}, "
+                           f"layout {layout})")
     launch_count.value += 1
     return out
 

@@ -25,7 +25,10 @@ version. Contract, shared by both:
   masked averages over its live keys only (the dense path averages over
   every key, so the two differ there).
 - scale defaults to D^-1/2; the model passes 1.0 (q arrives pre-scaled).
-- fp32 softmax and accumulators; the output has q's dtype. Forward only.
+- fp32 softmax and accumulators; the output has q's dtype. In bf16 the
+  kernel rounds the softmax weights to bf16 before the product with v
+  (the tensor cores take bf16 operands); the plain version does not.
+  Forward only.
 
 A `BlockPlan` is a pattern's column list on one device: `cols`
 (nqb, T) int32 and the per-row live `counts` (nqb,) int32. The serving

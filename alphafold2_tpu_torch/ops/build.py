@@ -3,8 +3,9 @@
 Each source under `alphafold2_tpu_torch/csrc/` is compiled by `nvcc` for
 Hopper (`sm_90a`) into a shared library with a plain C interface, in
 `alphafold2_tpu_torch/_build/` (git-ignored). The library's file name
-carries a hash of its source and flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. A failed build raises.
+carries a hash of its source, of every header (`*.cuh`) beside it and of
+the flags, so an edited source or header is rebuilt and an unchanged
+one is loaded as it is. A failed build raises.
 """
 
 from __future__ import annotations
@@ -51,7 +52,10 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = PACKAGE_DIR / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

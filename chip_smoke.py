@@ -17,12 +17,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
    small backward against autograd; K2 at the 512
    bucket's MSA row and triangle shapes under the default policy's
    pattern and a banded block-128 one, plus one call at the default
-   scale);
-4. time: each kernel, its plain version and one PyTorch library call
-   computing the same function (a yardstick the port never calls),
-   beside the least time the card could take (bytes or FLOPs bound);
-   K2 also beside K1 on the same shape with the pattern as an additive
-   bias (the dense cost);
+   scale), then at the tensor-core tile's edge cases (ragged and odd
+   lengths, every head width, replayed bias, fully masked rows, every
+   bf16 layout of K1, every K2 block size, live keys all masked, other
+   scales);
+4. time: each kernel (CUDA events over a run of launches, and device
+   time per launch from torch.profiler), its plain version and one
+   PyTorch library call computing the same function (a yardstick the
+   port never calls), beside the least time the card could take (bytes
+   or FLOPs bound); K1's bf16 layouts at the MSA column and triangle
+   shapes; K2 also beside K1 on the same shape with the pattern as an
+   additive bias (the dense cost), under the default pattern and a
+   banded block-128 one;
 5. parity: small fp32 models folded on the card (kernel path) and on
    the CPU (plain path) from the same weights, dense and under a
    block-sparse spec;
@@ -43,9 +49,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 nonzero before any phase.
+
+    python3 chip_smoke.py --phases time [--root DIR]
+
+runs only phases 1, 2 and 4 and prints one JSON line of the times;
+`--root` imports `alphafold2_tpu_torch` from another checkout (an older
+commit unpacked beside this one), so two trees' kernels are timed on
+one card in one call.
 """
 
+import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -104,24 +119,30 @@ def phase_build():
 
 
 def ptxas_summary(report):
-    """One line per compiled kernel from `-Xptxas -v`: template
-    arguments, registers, shared memory, spills."""
+    """One line per compiled kernel from `-Xptxas -v`: kernel name and
+    template arguments (the fp32 kernels <D, BQ>; the bf16 tensor-core
+    kernels <D, WG, G, BK, STAGES>), registers, shared memory, spills."""
     lines, entry, spill = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            targs = re.search(r"kernelI(\w+?)Li(\d+)ELi(\d+)E", m.group(1))
-            entry = "<{}, D={}, BQ={}>".format(
-                "bf16" if "bfloat16" in targs.group(1) else "f32",
-                targs.group(2), targs.group(3)) if targs else m.group(1)
+            targs = re.search(r"\d((?:fused_attention|block_sparse)"
+                              r"(?:_mma(?:_wide)?)?_kernel)I(\w*?)"
+                              r"((?:Li\d+E)+)",
+                              m.group(1))
+            entry = "{} {}<{}>".format(
+                targs.group(1), "bf16" if "_mma_" in targs.group(1)
+                or "bfloat16" in targs.group(2) else "f32", ", ".join(re.findall(r"Li(\d+)E",
+                                                 targs.group(3)))) \
+                if targs else m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
             spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and entry:
             lines.append(f"{entry}: {m.group(1)} registers, "
-                         f"{m.group(2)} B smem, {spill}")
+                         f"{m.group(2) or 0} B static smem, {spill}")
     return lines
 
 
@@ -214,6 +235,117 @@ def phase_check():
     return worst
 
 
+# Edge shapes of the tensor-core tile. K1: (Nq, Nk, D, heads,
+# bias_repeat, full), lengths off the 16/64 grid (5, 17, 131, 200), odd Nk
+# under a bias, every head width, a bias replayed over bias_repeat > 1
+# with heads > 1; `full` masks one query row and one key row in full.
+# K2: (block, D, scale), every block and head width, scales other than 1.
+K1_EDGES = [(5, 5, 64, 8, 3, False), (131, 131, 32, 2, 2, True),
+            (200, 131, 16, 2, 1, False), (131, 200, 128, 1, 2, True),
+            (17, 5, 64, 4, 2, False), (64, 7, 16, 2, 3, True)]
+K2_EDGES = [(16, 16, 1.0), (32, 128, 0.37), (64, 32, 1.0),
+            (128, 64, 0.125), (128, 128, 1.0), (32, 64, 2.0)]
+
+
+def phase_check_edges():
+    """Both kernels at the tile's edge cases against their plain versions
+    in fp32 on the same values; bf16 K1 in every layout of its dispatch
+    (0 = the shape rule, 1 and 2 forced), K2 with a query block whose live
+    keys are all masked (it averages over its live keys, as the plain
+    version does). Returns the worst error per (kernel, dtype)."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    dev = torch.device("cuda")
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOLERANCE[dtype]
+        layouts = (0,) if dtype == torch.float32 else (0, 1, 2)
+        for nq, nk, d, heads, rep, full in K1_EDGES:
+            g = torch.Generator().manual_seed(nq + nk + d)
+            b = heads * rep
+            q, k = (torch.randn(b, n, d, generator=g) * 0.5 for n in (nq, nk))
+            v = torch.randn(b, nk, d, generator=g)
+            bias = torch.randn(heads, nq, nk, generator=g).to(dev)
+            qm = torch.arange(nq)[None] < torch.randint(
+                (nq + 1) // 2, nq + 1, (rep, 1), generator=g)
+            km = torch.arange(nk)[None] < torch.randint(
+                (nk + 1) // 2, nk + 1, (rep, 1), generator=g)
+            if full:
+                qm[0] = False
+                km[-1] = False
+            qm, km = qm.to(dev), km.to(dev)
+            q, k, v = (t.to(dev, dtype) for t in (q, k, v))
+            ref = attn.attention_reference(q.float(), k.float(), v.float(),
+                                           bias, qm, km, heads=heads,
+                                           bias_repeat=rep)
+            errs = []
+            for layout in layouts:
+                out = attn._launch(q, k, v, bias, qm, km, heads, rep,
+                                   layout=layout)
+                torch.cuda.synchronize()
+                errs.append(float((out.float() - ref).abs().max()))
+                if not errs[-1] <= tol or not torch.isfinite(out).all():
+                    raise AssertionError(
+                        f"fused_attention edge Nq={nq} Nk={nk} D={d} "
+                        f"{dtype} layout {layout}: max abs err {errs[-1]}")
+            log(f"check fused_attention edge Nq={nq} Nk={nk} D={d} heads="
+                f"{heads} repeat={rep}{' full masks' if full else ''} "
+                f"{str(dtype)[6:]} layouts {list(layouts)}: max abs err "
+                f"{max(errs):.3e} (tolerance {tol:.0e})")
+            key = ("fused_attention", dtype)
+            worst[key] = max(worst.get(key, 0.0), max(errs))
+        heads, rep = 2, 3
+        for block, d, scale in K2_EDGES:
+            n = 4 * block
+            g = torch.Generator().manual_seed(block + d)
+            b = heads * rep
+            q, k = (torch.randn(b, n, d, generator=g) * 0.5 for _ in range(2))
+            v = torch.randn(b, n, d, generator=g)
+            bias = torch.randn(heads, n, n, generator=g)
+            km = torch.arange(n)[None] < torch.randint(
+                n // 2, n + 1, (rep, 1), generator=g)
+            # window 0, one global block: query block 1 sees key blocks 0
+            # and 1, every key of which is masked in this mask row
+            km[1, :2 * block] = False
+            plan = bs.BlockPlan.build(bs.banded_block_pattern(4, 0, 1),
+                                      block, dev)
+            kw = dict(bias=bias.to(dev), bias_repeat=rep, k_mask=km.to(dev),
+                      heads=heads, scale=scale)
+            args = [t.to(dev, dtype) for t in (q, k, v)]
+            out = bs.block_sparse_attention(*args, plan, **kw)
+            torch.cuda.synchronize()
+            ref = bs.block_sparse_reference(*(t.float() for t in args), plan,
+                                            **kw)
+            err = float((out.float() - ref).abs().max())
+            log(f"check block_sparse edge block={block} D={d} scale={scale} "
+                f"{str(dtype)[6:]}: max abs err {err:.3e} (tolerance "
+                f"{tol:.0e})")
+            if not err <= tol or not torch.isfinite(out).all():
+                raise AssertionError(f"block_sparse edge block {block} D {d} "
+                                     f"{dtype}: max abs err {err}")
+            key = ("block_sparse", dtype)
+            worst[key] = max(worst.get(key, 0.0), err)
+    return worst
+
+
+def device_ms(fn, iters):
+    """Device time per call from torch.profiler: the time of every CUDA
+    kernel that `iters` calls of `fn` launched (after one warm-up call),
+    over `iters`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / iters / 1e3
+
+
 def cuda_ms(fn, iters, warmup=3):
     for _ in range(warmup):
         fn()
@@ -229,13 +361,19 @@ def cuda_ms(fn, iters, warmup=3):
 
 
 def phase_time():
-    """K1 at each fold-path shape in bf16: kernel, plain version, SDPA
-    yardstick and the bound. The JSON record carries the triangle shape,
-    the 256-bucket fold's largest and most frequent launch, and the
-    512-bucket fold's column shape under `msa_col_512_*`."""
+    """K1 at each fold-path shape in bf16: kernel (CUDA events over a run
+    of launches, and device time per launch from torch.profiler), plain
+    version, SDPA yardstick and the bound; at the MSA column shapes and
+    the triangle shape also each bf16 layout of the kernel's dispatch by
+    profiler device time (where the tree has them), which is what the
+    shape rule is chosen from. The JSON record carries the triangle
+    shape, the 256-bucket fold's largest and most frequent launch, and
+    the other shapes under `<shape>_*`."""
+    import inspect
     from alphafold2_tpu_torch.ops import attention as attn
     dtype = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    has_layouts = "layout" in inspect.signature(attn._launch).parameters
     results = {}
     for shape, iters in (("msa_row", 50), ("msa_col", 50),
                          ("triangle", 20), ("msa_col_512", 50)):
@@ -244,6 +382,7 @@ def phase_time():
         heads, rep = kw["heads"], kw["bias_repeat"]
         b, n, d = q.shape
         ms = cuda_ms(lambda: attn.fused_attention(**kw), iters=iters)
+        dev_ms = device_ms(lambda: attn.fused_attention(**kw), iters=iters)
         plain_ms = cuda_ms(lambda: attn.attention_reference(**kw),
                            iters=max(iters // 2, 5))
         # yardstick only: one library call on the equivalent additive mask
@@ -258,6 +397,13 @@ def phase_time():
             lambda: sdpa(q, k, v, attn_mask=add_mask, scale=1.0),
             iters=max(iters // 2, 5))
         del add_mask, valid
+        layouts = {}
+        if has_layouts and shape != "msa_row":
+            args = [kw[key] for key in ("q", "k", "v", "bias", "q_mask",
+                                        "k_mask")] + [heads, rep]
+            for layout in (1, 2):
+                layouts[layout] = device_ms(
+                    lambda: attn._launch(*args, layout=layout), iters=iters)
 
         nbytes = (4 * b * n * d * q.element_size()
                   + (0 if bias is None else bias.numel() * 4)
@@ -268,23 +414,32 @@ def phase_time():
         bound_ms = max(bytes_ms, flops_ms)
         bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
         log(f"time fused_attention {shape} bf16 B={b} N={n} D={d}: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+            f"kernel {ms:.4f} ms (events), {dev_ms:.4f} ms (profiler "
+            f"device time), plain {plain_ms:.4f} ms, sdpa "
             f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
             f"{nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms, "
-            f"{flops / 1e9:.3f} GFLOP -> {flops_ms:.4f} ms)")
-        results[shape] = dict(ms=ms, plain_ms=plain_ms,
+            f"{flops / 1e9:.3f} GFLOP -> {flops_ms:.4f} ms), "
+            f"{100 * bound_ms / dev_ms:.1f} % of bound")
+        if layouts:
+            log(f"  layouts by profiler device time (ms): " + ", ".join(
+                f"{key} {val:.4f}" for key, val in layouts.items()))
+        results[shape] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                               library_ms=library_ms, bound_ms=bound_ms,
                               bound_by=bound_by)
-    per_fold = sum(results[s]["ms"] * c for s, c in
+        results[shape].update({f"layout{key}_ms": val
+                               for key, val in layouts.items()})
+    per_fold = sum(results[s]["device_ms"] * c for s, c in
                    (("msa_row", 24), ("msa_col", 24), ("triangle", 48)))
-    log(f"time fused_attention: {per_fold:.2f} ms of kernel time per fold "
-        f"(24 row + 24 column + 48 triangle launches); "
-        f"{24 * results['msa_col_512']['ms']:.2f} ms per 512-bucket fold "
-        f"(24 column launches)")
-    col512 = results["msa_col_512"]
-    return dict(results["triangle"], **{
-        f"msa_col_512_{key}": col512[key]
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    log(f"time fused_attention: {per_fold:.2f} ms of kernel device time "
+        f"per fold (24 row + 24 column + 48 triangle launches); "
+        f"{24 * results['msa_col_512']['device_ms']:.2f} ms per 512-bucket "
+        f"fold (24 column launches)")
+    record = dict(results["triangle"])
+    for shape in ("msa_row", "msa_col", "msa_col_512"):
+        record.update({f"{shape}_{key}": val
+                       for key, val in results[shape].items()
+                       if key != "bound_by"})
+    return record
 
 
 def sparse_specs():
@@ -384,57 +539,85 @@ def block_sparse_bound(kw, spec):
 
 def phase_time_block_sparse():
     """K2 at the 512 bucket's shapes in bf16 under the default policy's
-    pattern: kernel, plain version, K1 on the same shape with the
-    pattern as an additive bias (the masked backend: the dense cost),
-    an SDPA yardstick on the equivalent dense additive mask, and the
-    bound. The JSON record carries the triangle shape."""
+    pattern (live 0.2891) and the banded block-128 one (live 0.875):
+    kernel (CUDA events, and profiler device time per launch), K1 on the
+    same shape with the pattern as an additive bias (the masked backend:
+    the dense cost, both clocks), and the bound; under the default
+    pattern also the plain version and an SDPA yardstick on the
+    equivalent dense additive mask. The two patterns are two measured
+    points of the K2/dense crossover in live fraction. The JSON record
+    carries the default pattern's triangle shape and the rest under
+    `<shape>_*` and `banded128_<shape>_*`."""
     from alphafold2_tpu_torch.ops import attention as attn
     from alphafold2_tpu_torch.ops import block_sparse as bs
     dtype = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    spec = sparse_specs()["default"]
     results = {}
-    for shape, iters in (("msa_row", 50), ("triangle", 10)):
-        kw = block_sparse_inputs(shape, spec, dtype, torch.device("cuda"),
-                                 seed=5)
-        q, k, v, bias = kw["q"], kw["k"], kw["v"], kw["bias"]
-        heads, rep, k_mask = kw["heads"], kw["bias_repeat"], kw["k_mask"]
-        b, n, d = q.shape
-        ms = cuda_ms(lambda: bs.block_sparse_attention(**kw), iters=iters)
-        plain_ms = cuda_ms(lambda: bs.block_sparse_reference(**kw),
-                           iters=max(iters // 2, 3))
-        live = torch.as_tensor(spec.token_mask(), device=q.device)
-        pattern_bias = (bias + torch.where(live, 0.0, attn.MASK_VALUE)
-                        ).contiguous()
-        dense_ms = cuda_ms(lambda: attn.fused_attention(
-            q, k, v, bias=pattern_bias, q_mask=k_mask, k_mask=k_mask,
-            heads=heads, bias_repeat=rep), iters=max(iters // 2, 3))
-        # yardstick only: one library call on the equivalent additive mask
-        add_mask = bias.reshape(-1, heads, n, n).repeat_interleave(
-            rep, dim=0).reshape(b, n, n)
-        keep = k_mask.repeat_interleave(heads, dim=0)[:, None, :]
-        add_mask = add_mask.masked_fill(~keep, attn.MASK_VALUE)
-        add_mask = add_mask.masked_fill(~live, float("-inf")).to(dtype)
-        library_ms = cuda_ms(
-            lambda: sdpa(q, k, v, attn_mask=add_mask, scale=1.0),
-            iters=max(iters // 2, 3))
-        del add_mask, keep, pattern_bias
-        bound_ms, bound_by, nbytes, flops = block_sparse_bound(kw, spec)
-        log(f"time block_sparse {shape} bf16 B={b} N={n} D={d} "
-            f"({spec.label}, live {spec.live_fraction:.4f}): kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, K1 with the pattern "
-            f"as bias {dense_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.3f} GFLOP)")
-        results[shape] = dict(ms=ms, plain_ms=plain_ms,
-                              library_ms=library_ms, bound_ms=bound_ms,
-                              bound_by=bound_by, dense_k1_ms=dense_ms)
-    row, tri = results["msa_row"], results["triangle"]
-    log(f"time block_sparse: {24 * row['ms'] + 48 * tri['ms']:.2f} ms of "
-        f"K2 time per 512-bucket fold (24 row + 48 triangle launches), "
-        f"against {24 * row['dense_k1_ms'] + 48 * tri['dense_k1_ms']:.2f} "
-        f"ms for K1 on the same shapes with the pattern as bias")
-    return tri
+    for pname, spec in sparse_specs().items():
+        for shape, iters in (("msa_row", 50), ("triangle", 10)):
+            kw = block_sparse_inputs(shape, spec, dtype,
+                                     torch.device("cuda"), seed=5)
+            q, k, v, bias = kw["q"], kw["k"], kw["v"], kw["bias"]
+            heads, rep, k_mask = kw["heads"], kw["bias_repeat"], \
+                kw["k_mask"]
+            b, n, d = q.shape
+            run = lambda: bs.block_sparse_attention(**kw)
+            ms = cuda_ms(run, iters=iters)
+            dev_ms = device_ms(run, iters=iters)
+            live = torch.as_tensor(spec.token_mask(), device=q.device)
+            pattern_bias = (bias + torch.where(live, 0.0, attn.MASK_VALUE)
+                            ).contiguous()
+            dense = lambda: attn.fused_attention(
+                q, k, v, bias=pattern_bias, q_mask=k_mask, k_mask=k_mask,
+                heads=heads, bias_repeat=rep)
+            dense_ms = cuda_ms(dense, iters=max(iters // 2, 3))
+            dense_dev_ms = device_ms(dense, iters=max(iters // 2, 3))
+            del pattern_bias
+            entry = dict(ms=ms, device_ms=dev_ms, dense_k1_ms=dense_ms,
+                         dense_k1_device_ms=dense_dev_ms)
+            extra = ""
+            if pname == "default":
+                plain_ms = cuda_ms(lambda: bs.block_sparse_reference(**kw),
+                                   iters=max(iters // 2, 3))
+                # yardstick only: one library call on the equivalent mask
+                add_mask = bias.reshape(-1, heads, n, n).repeat_interleave(
+                    rep, dim=0).reshape(b, n, n)
+                keep = k_mask.repeat_interleave(heads, dim=0)[:, None, :]
+                add_mask = add_mask.masked_fill(~keep, attn.MASK_VALUE)
+                add_mask = add_mask.masked_fill(~live, float("-inf")
+                                                ).to(dtype)
+                library_ms = cuda_ms(
+                    lambda: sdpa(q, k, v, attn_mask=add_mask, scale=1.0),
+                    iters=max(iters // 2, 3))
+                del add_mask, keep
+                entry.update(plain_ms=plain_ms, library_ms=library_ms)
+                extra = (f", plain {plain_ms:.4f} ms, sdpa "
+                         f"{library_ms:.4f} ms")
+            bound_ms, bound_by, nbytes, flops = block_sparse_bound(kw, spec)
+            entry.update(bound_ms=bound_ms, bound_by=bound_by)
+            log(f"time block_sparse {shape} {pname} bf16 B={b} N={n} D={d} "
+                f"({spec.label}, live {spec.live_fraction:.4f}): kernel "
+                f"{ms:.4f} ms (events), {dev_ms:.4f} ms (profiler device "
+                f"time); K1 with the pattern as bias {dense_ms:.4f} ms "
+                f"(events), {dense_dev_ms:.4f} ms (profiler){extra}, bound "
+                f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.3f} GFLOP), {100 * bound_ms / dev_ms:.1f} % "
+                f"of bound; K2 / dense {dev_ms / dense_dev_ms:.3f}")
+            results[(pname, shape)] = entry
+    row, tri = results[("default", "msa_row")], results[("default",
+                                                         "triangle")]
+    log(f"time block_sparse: {24 * row['device_ms'] + 48 * tri['device_ms']:.2f}"
+        f" ms of K2 device time per 512-bucket fold (24 row + 48 triangle "
+        f"launches), against {24 * row['dense_k1_device_ms'] + 48 * tri['dense_k1_device_ms']:.2f}"
+        f" ms for K1 on the same shapes with the pattern as bias")
+    record = dict(tri)
+    for (pname, shape), entry in results.items():
+        if (pname, shape) == ("default", "triangle"):
+            continue
+        prefix = shape if pname == "default" else f"{pname}_{shape}"
+        record.update({f"{prefix}_{key}": val for key, val in entry.items()
+                       if key != "bound_by"})
+    return record
 
 
 def perturb(model, seed, scale=0.05):
@@ -567,9 +750,9 @@ def phase_profile(run, title, unprofiled=5):
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
-        if "fused_attention_kernel" in e.key:
+        if re.search(r"fused_attention\w*_kernel", e.key):
             label = "fused_attention (K1)"
-        elif "block_sparse_kernel" in e.key:
+        elif re.search(r"block_sparse\w*_kernel", e.key):
             label = "block_sparse_attention (K2)"
         else:
             label = e.key[:80]
@@ -708,15 +891,39 @@ def phase_executor(model, cfg):
     return k2_total, k1_total, ex, sparse_batch, spec
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=None,
+                    help="checkout whose alphafold2_tpu_torch is imported "
+                         "(default: the one holding this script), so an "
+                         "older tree's kernels can be timed in the same "
+                         "call")
+    ap.add_argument("--phases", choices=("all", "time"), default="all",
+                    help="'time': only the device, build and the two time "
+                         "phases, then one JSON line of the times")
+    args = ap.parse_args(argv)
+    if args.root is not None:
+        sys.path[0] = os.path.abspath(args.root)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
         return 1
     name, count = phase_device()
     phase_build()
+    if args.phases == "time":
+        record = {"root": args.root or os.path.dirname(
+            os.path.abspath(__file__)),
+                  "fused_attention": phase_time(),
+                  "block_sparse_attention": phase_time_block_sparse()}
+        print(json.dumps(record), flush=True)
+        return 0
     worst = phase_check()
     bs_worst = phase_check_block_sparse()
+    edges = phase_check_edges()
+    for dtype in (torch.float32, torch.bfloat16):
+        worst[dtype] = max(worst[dtype], edges[("fused_attention", dtype)])
+        bs_worst[dtype] = max(bs_worst[dtype],
+                              edges[("block_sparse", dtype)])
     timing = phase_time()
     bs_timing = phase_time_block_sparse()
     phase_parity()

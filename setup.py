@@ -12,7 +12,7 @@ setup(
     packages=find_packages(include=("alphafold2_tpu", "alphafold2_tpu.*",
                                     "alphafold2_tpu_torch",
                                     "alphafold2_tpu_torch.*")),
-    package_data={"alphafold2_tpu_torch": ["csrc/*.cu"]},
+    package_data={"alphafold2_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

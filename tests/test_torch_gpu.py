@@ -90,6 +90,66 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype):
         assert err <= atol, f"{name}: max abs err {err} > {atol}"
 
 
+# Edge shapes of the tensor-core tile: (Nq, Nk, D, heads, bias_repeat,
+# masks). Lengths off the 16/64 grid (5, 17, 131, 200), odd Nk under a
+# bias, every head width, a bias replayed over bias_repeat > 1 with
+# heads > 1; "full" masks one query row and one key row in full.
+EDGE_SHAPES = [
+    (5, 5, 64, 8, 3, "ragged"),
+    (131, 131, 32, 2, 2, "full"),
+    (200, 131, 16, 2, 1, "ragged"),
+    (131, 200, 128, 1, 2, "full"),
+    (17, 5, 64, 4, 2, "ragged"),
+    (64, 7, 16, 2, 3, "full"),
+]
+
+
+def edge_case(shape, dtype, device, seed=0):
+    """(q, k, v, bias, q_mask, k_mask, heads, bias_repeat) on `device`
+    for one EDGE_SHAPES entry, one batch element."""
+    nq, nk, d, heads, rep, masks = shape
+    g = torch.Generator().manual_seed(seed)
+    b = rep * heads
+    q, k = (torch.randn(b, n, d, generator=g) * 0.5 for n in (nq, nk))
+    v = torch.randn(b, nk, d, generator=g)
+    bias = torch.randn(heads, nq, nk, generator=g)
+    q_mask = torch.arange(nq)[None] < torch.randint(
+        (nq + 1) // 2, nq + 1, (rep, 1), generator=g)
+    k_mask = torch.arange(nk)[None] < torch.randint(
+        (nk + 1) // 2, nk + 1, (rep, 1), generator=g)
+    if masks == "full":
+        q_mask[0] = False
+        k_mask[-1] = False
+    return (q.to(device, dtype), k.to(device, dtype), v.to(device, dtype),
+            bias.to(device), q_mask.to(device), k_mask.to(device), heads,
+            rep)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_edge_shapes(cuda_device, dtype):
+    """K1 at the tile's edge shapes against the plain version in fp32 on
+    the same values (atol 1e-4 fp32, 2e-2 bf16). bf16 runs every layout
+    of the tensor-core kernel (0 = the shape rule, 1 and 2 forced), so the
+    rule may pick any of them."""
+    dt = getattr(torch, dtype)
+    atol = 1e-4 if dt == torch.float32 else 2e-2
+    layouts = (0,) if dt == torch.float32 else (0, 1, 2)
+    for shape in EDGE_SHAPES:
+        q, k, v, bias, qm, km, heads, rep = edge_case(shape, dt,
+                                                      cuda_device)
+        ref = pt_attn.attention_reference(
+            q.float(), k.float(), v.float(), bias, qm, km, heads=heads,
+            bias_repeat=rep)
+        for layout in layouts:
+            out = pt_attn._launch(q, k, v, bias, qm, km, heads, rep,
+                                  layout=layout)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref).abs().max())
+            assert torch.isfinite(out).all()
+            assert err <= atol, f"{shape} layout {layout}: {err} > {atol}"
+
+
 @pytest.mark.gpu
 def test_cuda_fold_matches_cpu_fold(cuda_device):
     """A small fp32 model folds on the card (through the kernel) as it
@@ -174,6 +234,48 @@ def test_block_sparse_kernel_matches_plain(cuda_device, dtype):
                                                v.float(), plan, **kw)
             err = float((out.float() - ref).abs().max())
             assert err <= atol, f"{name}: max abs err {err} > {atol}"
+
+
+# K2's edge cases: (block, D, scale), every block and head width, and
+# scales other than the model's 1.0
+BLOCK_EDGES = [(16, 16, 1.0), (32, 128, 0.37), (64, 32, 1.0),
+               (128, 64, 0.125), (128, 128, 1.0), (32, 64, 2.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_sparse_kernel_edge_cases(cuda_device, dtype):
+    """K2 at every block size and head width, a replayed bias over
+    bias_repeat > 1 with heads > 1, and a query block whose live keys are
+    all masked (it averages over its live keys, as the plain version
+    does), against the plain version in fp32 on the same values."""
+    from alphafold2_tpu_torch.ops import block_sparse as pt_bs
+    dt = getattr(torch, dtype)
+    atol = 1e-4 if dt == torch.float32 else 2e-2
+    heads, rep = 2, 3
+    for block, d, scale in BLOCK_EDGES:
+        n = 4 * block
+        g = torch.Generator().manual_seed(block + d)
+        b = heads * rep
+        q, k = (torch.randn(b, n, d, generator=g) * 0.5 for _ in range(2))
+        v = torch.randn(b, n, d, generator=g)
+        bias = torch.randn(heads, n, n, generator=g)
+        k_mask = torch.arange(n)[None] < torch.randint(
+            n // 2, n + 1, (rep, 1), generator=g)
+        # window 0, one global block: query block 1 sees key blocks 0, 1
+        k_mask[1, :2 * block] = False
+        plan = pt_bs.BlockPlan.build(
+            pt_bs.banded_block_pattern(4, 0, 1), block, cuda_device)
+        kw = dict(bias=bias.to(cuda_device), bias_repeat=rep,
+                  k_mask=k_mask.to(cuda_device), heads=heads, scale=scale)
+        args = [t.to(cuda_device, dt) for t in (q, k, v)]
+        out = pt_bs.block_sparse_attention(*args, plan, **kw)
+        torch.cuda.synchronize()
+        ref = pt_bs.block_sparse_reference(*(t.float() for t in args),
+                                           plan, **kw)
+        err = float((out.float() - ref).abs().max())
+        assert torch.isfinite(out).all()
+        assert err <= atol, f"block {block} D {d}: {err} > {atol}"
 
 
 @pytest.mark.gpu

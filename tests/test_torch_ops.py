@@ -158,3 +158,29 @@ def test_other_devices_never_reach_the_plain_version():
     q = torch.zeros(2, 8, 16, device="meta")
     with pytest.raises(ValueError):
         pt_attn.fused_attention(q, q, q)
+
+
+def test_build_hash_covers_the_headers(tmp_path, monkeypatch):
+    """A kernel's library name hashes its source, every `*.cuh` beside it
+    and the flags: editing only the shared tile header gives a new path,
+    so no stale library is loaded (no nvcc needed)."""
+    from alphafold2_tpu_torch.ops import build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "kernel.cu").write_text('#include "tile.cuh"\n')
+    header = csrc / "tile.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(build, "PACKAGE_DIR", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "SOURCES", {"kernel": "csrc/kernel.cu"})
+    first = build.library_path("kernel")
+    assert first.parent == tmp_path / "_build"
+    assert build.library_path("kernel") == first      # stable
+    header.write_text("// v2\n")
+    second = build.library_path("kernel")
+    assert second != first
+    (csrc / "other.cuh").write_text("// a new header\n")
+    assert build.library_path("kernel") not in (first, second)
+    header.write_text("// v1\n")
+    (csrc / "other.cuh").unlink()
+    assert build.library_path("kernel") == first

@@ -1,13 +1,18 @@
-"""Model configuration (counterpart of `alphafold2_tpu/config.py:20-74`).
+"""One configuration tree for model, data, mesh and training (counterpart
+of `alphafold2_tpu/config.py`).
 
-`ModelConfig` keeps the JAX package's fields and defaults so one config
-dict builds either model. `build()` returns the port's `Alphafold2`.
+`ModelConfig`, `DataConfig`, `MeshConfig`, `TrainConfig` and `Experiment`
+keep the JAX package's field names and defaults, so one experiment JSON
+builds either package's run. `ModelConfig.build()` returns the port's
+`Alphafold2`; `Experiment.build()` returns (model, optimizer factory,
+None): a mesh of more than one device is not ported and raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+import json
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 import torch
@@ -49,8 +54,9 @@ class ModelConfig:
 
     def build(self, device=None, generator: Optional[torch.Generator] = None):
         """The port's `Alphafold2` for this config: bf16 trunk when
-        `bfloat16`, on `device` (CUDA unless the caller names another),
-        weights drawn from `generator`."""
+        `bfloat16`, dropout at `attn_dropout`/`ff_dropout`, on `device`
+        (CUDA unless the caller names another), weights drawn from
+        `generator`."""
         from alphafold2_tpu_torch.model.alphafold2 import Alphafold2
         kwargs = dataclasses.asdict(self)
         use_bf16 = kwargs.pop("bfloat16")
@@ -65,3 +71,80 @@ class ModelConfig:
         return {"block": self.sparse_block,
                 "num_global": self.sparse_num_global,
                 "window": self.sparse_window}
+
+
+@dataclass
+class DataConfig:
+    crop_len: int = 128
+    msa_depth: int = 5
+    batch_size: int = 1
+    root: Optional[str] = None        # trrosetta-style data dir; None=synthetic
+
+
+@dataclass
+class MeshConfig:
+    pipe: int = 1
+    data: int = 1
+    i: int = 1
+    j: int = 1
+
+    def build(self):
+        """None for one device; a mesh is not ported yet."""
+        if self.pipe * self.data * self.i * self.j == 1:
+            return None
+        raise NotImplementedError(
+            f"a device mesh ({dataclasses.asdict(self)}) is not ported to "
+            f"PyTorch yet (ROADMAP.md, queue 1, item 10)")
+
+
+@dataclass
+class TrainConfig:
+    learning_rate: float = 3e-4
+    grad_accum_every: int = 16
+    max_grad_norm: Optional[float] = None
+    # warmup+cosine schedule (0 / None = the reference's constant LR)
+    warmup_steps: int = 0
+    decay_steps: Optional[int] = None
+    num_steps: int = 1000
+    log_every: int = 10
+    checkpoint_dir: Optional[str] = None
+    seed: int = 0
+
+
+@dataclass
+class Experiment:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Experiment":
+        return cls(
+            model=ModelConfig(**d.get("model", {})),
+            data=DataConfig(**d.get("data", {})),
+            mesh=MeshConfig(**d.get("mesh", {})),
+            train=TrainConfig(**d.get("train", {})),
+        )
+
+    @classmethod
+    def from_json(cls, text: str) -> "Experiment":
+        return cls.from_dict(json.loads(text))
+
+    def build(self, device=None, generator: Optional[torch.Generator] = None):
+        """(model, optimizer factory, None); the mesh raises when it has
+        more than one device."""
+        from alphafold2_tpu_torch.train.state import adam
+        mesh = self.mesh.build()
+        model = self.model.build(device=device, generator=generator)
+        tx = adam(self.train.learning_rate, self.train.grad_accum_every,
+                  self.train.max_grad_norm,
+                  warmup_steps=self.train.warmup_steps,
+                  decay_steps=self.train.decay_steps)
+        return model, tx, mesh

@@ -1,7 +1,7 @@
 """Model-level constants the PyTorch port needs.
 
 A copy of the slice of `alphafold2_tpu/constants.py` that the fold path
-reads (the port imports nothing of the JAX package, not even its
+and train paths read (the port imports nothing of the JAX package, not even its
 numpy-only modules). Values must stay equal to the JAX package's;
 `tests/test_torch_model.py` pins that.
 """
@@ -12,6 +12,9 @@ NUM_AMINO_ACIDS = 21
 NUM_EMBEDDS_TR = 1280  # ESM-1b embedding width
 
 DISTOGRAM_BUCKETS = 37
+
+# label of positions a cross-entropy skips
+IGNORE_INDEX = -100
 
 # Distogram bin edges span 2..20 Angstrom; the recycling embedder buckets
 # CA distances over the same range.

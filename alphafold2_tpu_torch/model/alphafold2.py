@@ -1,16 +1,20 @@
 """Top-level Alphafold2 model in PyTorch (counterpart of
-`alphafold2_tpu/model/alphafold2.py:171-616`), limited to the inference
-forward that `predict.fold` runs:
+`alphafold2_tpu/model/alphafold2.py:171-616`): the forward that
+`predict.fold` runs and the training forward.
 
-token and relative-position embeddings, the outer-sum pair init, the
-recycling embedder, the main Evoformer, the distogram head on the
-symmetrised pair, the single/pair projections, the IPA structure module
-and the lDDT confidence head. The trunk runs in `dtype` (bf16 by
-default in `ModelConfig`); the heads and the structure module are fp32.
+Token and relative-position embeddings, MSA-MLM noising in training, the
+outer-sum pair init, the recycling embedder, the main Evoformer, the
+distogram head on the symmetrised pair, the MLM loss, the single/pair
+projections, the IPA structure module and the lDDT confidence head. The
+trunk runs in `dtype` (bf16 by default in `ModelConfig`); the heads and
+the structure module are fp32.
 
-Inputs and options the port does not run yet (templates, extra MSA,
-pretrained embeddings, training, angle heads, other structure modules,
-refinement) raise NotImplementedError naming their ROADMAP item.
+`train=True` noises the MSA and turns dropout on; both draw from the
+`generator` passed to `forward` (the default generator when None), and
+`ReturnValues.msa_mlm_loss` carries the MLM loss. Inputs and options the
+port does not run yet (templates, extra MSA, pretrained embeddings, angle
+heads, other structure modules, refinement) raise NotImplementedError
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from torch import nn
 from alphafold2_tpu_torch import constants
 from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.model.evoformer import Evoformer
+from alphafold2_tpu_torch.model.mlm import MLM
 from alphafold2_tpu_torch.model.primitives import (Dense, LayerNorm,
                                                    init_weights, not_ported)
 from alphafold2_tpu_torch.model.structure import StructureModule
@@ -40,6 +45,7 @@ class ReturnValues(NamedTuple):
     distance: Optional[torch.Tensor] = None      # (b, n, n, buckets)
     recyclables: Optional[Recyclables] = None
     confidence: Optional[torch.Tensor] = None    # raw (b, n, 1)
+    msa_mlm_loss: Optional[torch.Tensor] = None  # scalar, train=True only
 
 
 _ITEM6 = "queue 1, item 6 (model/alphafold2.py)"
@@ -87,6 +93,7 @@ class Alphafold2(nn.Module):
         sparse_num_global: int = 1,
         sparse_window: int = 1,
         pipeline_microbatches: int = 0,
+        use_scan: bool = True,
         dtype: Any = torch.float32,
         device=None,
         generator: Optional[torch.Generator] = None,
@@ -117,8 +124,9 @@ class Alphafold2(nn.Module):
             recycling_distance_buckets, dim)
         self.net = Evoformer(
             dim, depth, heads=heads, dim_head=dim_head,
+            attn_dropout=attn_dropout, ff_dropout=ff_dropout,
             outer_mean_reference_scale=outer_mean_reference_scale,
-            dtype=dtype, **trunk_options)
+            use_scan=use_scan, dtype=dtype, **trunk_options)
         self.distogram_norm = LayerNorm(dim)
         self.to_distogram_logits = Dense(dim, constants.DISTOGRAM_BUCKETS)
         if predict_coords:
@@ -128,6 +136,8 @@ class Alphafold2(nn.Module):
                 dim, depth=structure_module_depth,
                 heads=structure_module_heads)
             self.lddt_linear = Dense(dim, 1)
+        # the last embedding row is the mask token
+        self.mlm = MLM(dim, num_tokens, mask_id=num_tokens)
 
         init_weights(self, generator if generator is not None
                      else torch.Generator().manual_seed(0))
@@ -147,11 +157,9 @@ class Alphafold2(nn.Module):
         return_recyclables: bool = False,
         return_aux_logits: bool = False,
         train: bool = False,
+        generator: Optional[torch.Generator] = None,
         **unported,
     ):
-        if train:
-            not_ported("train", train, "queue 1, items 6 and 10 (MLM, "
-                       "train/)")
         for name, value in unported.items():
             if name not in _UNPORTED_INPUTS:
                 raise TypeError(f"Alphafold2.forward got an unexpected "
@@ -174,6 +182,12 @@ class Alphafold2(nn.Module):
                              "must match")
         msa_mask = torch.ones_like(msa, dtype=torch.bool) \
             if msa_mask is None else msa_mask.bool()
+
+        # MLM noising of the MSA in training
+        original_msa = msa
+        replaced_msa_mask = None
+        if train:
+            msa, replaced_msa_mask = self.mlm.noise(msa, msa_mask, generator)
 
         dt = self.dtype
         x_single = self.token_emb(seq).to(dt)
@@ -207,7 +221,8 @@ class Alphafold2(nn.Module):
                                          right=False)
             x = x + self.recycling_distance_embed(buckets).to(dt)
 
-        x, m = self.net(x, m, mask=x_mask, msa_mask=msa_mask)
+        x, m = self.net(x, m, mask=x_mask, msa_mask=msa_mask, train=train,
+                        generator=generator)
 
         # symmetrised pair -> distogram head (fp32)
         x_f32 = x.float()
@@ -215,8 +230,13 @@ class Alphafold2(nn.Module):
         distance = self.to_distogram_logits(
             self.distogram_norm(trunk_embeds))
 
+        msa_mlm_loss = None
+        if train:
+            msa_mlm_loss = self.mlm(m[:, :original_msa.shape[1]],
+                                    original_msa, replaced_msa_mask)
+
         if not self.predict_coords:
-            return ReturnValues(distance=distance)
+            return ReturnValues(distance=distance, msa_mlm_loss=msa_mlm_loss)
 
         # single / pair projections and the structure module (fp32)
         single_msa_repr_row = m[:, 0]
@@ -228,6 +248,7 @@ class Alphafold2(nn.Module):
 
         ret = ReturnValues(
             distance=distance, confidence=confidence,
+            msa_mlm_loss=msa_mlm_loss,
             recyclables=Recyclables(
                 coords.detach(), single_msa_repr_row.float().detach(),
                 pairwise_repr.detach()) if return_recyclables else None)

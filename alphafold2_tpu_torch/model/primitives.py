@@ -15,11 +15,20 @@ self-attention whose attended axis has the spec's length goes through
 `ops.block_sparse.block_sparse_attention` instead, or, with the spec's
 "masked" backend, through the fused attention with the pattern as an
 additive bias.
+
+Dropout (FeedForward after the GEGLU, Attention on the softmax weights)
+is active only in a forward with `train=True`, and draws from the
+`generator` the caller passes (the default generator when None), on the
+generator's device. The fused kernel has no dropout: a training pass with
+attention dropout warns and takes the plain attention path, and a
+block-sparse spec with backend "auto" runs as "masked", as the JAX
+package does.
 """
 
 from __future__ import annotations
 
 import contextlib
+import warnings
 from typing import Optional
 
 import torch
@@ -39,6 +48,29 @@ def not_ported(option: str, value, roadmap: str):
     raise NotImplementedError(
         f"{option}={value!r} is not ported to PyTorch yet "
         f"(ROADMAP.md, {roadmap})")
+
+
+def random_uniform(shape, generator: Optional[torch.Generator],
+                   like: torch.Tensor) -> torch.Tensor:
+    """U[0, 1) fp32 of `shape` drawn from `generator` (the default
+    generator when None) on the generator's device, returned on `like`'s
+    device: one seeded CPU generator gives the same draws to a run on
+    the CPU and one on the card."""
+    device = like.device if generator is None else generator.device
+    return torch.rand(shape, generator=generator,
+                      device=device).to(like.device)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout as flax's `nn.Dropout`: keep with probability
+    1 - rate and scale the kept values by 1 / (1 - rate)."""
+    if rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = random_uniform(x.shape, generator, x) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class Dense(nn.Linear):
@@ -113,26 +145,34 @@ class GEGLU(nn.Module):
 
 class FeedForward(nn.Module):
     """Transition block: pre-LN -> Linear(dim -> 2*mult*dim) -> GEGLU ->
-    zero-initialised Linear."""
+    dropout (training only) -> zero-initialised Linear."""
 
-    def __init__(self, dim: int, mult: int = 4, dtype=torch.float32):
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
+        self.dropout = dropout
         self.norm = LayerNorm(dim, dtype)
         self.proj_in = Dense(dim, dim * mult * 2, dtype=dtype)
         self.geglu = GEGLU()
         self.proj_out = Dense(dim * mult, dim, dtype=dtype, init="zeros")
 
-    def forward(self, x):
-        return self.proj_out(self.geglu(self.proj_in(self.norm(x))))
+    def forward(self, x, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        x = self.geglu(self.proj_in(self.norm(x)))
+        if train:
+            x = dropout(x, self.dropout, generator)
+        return self.proj_out(x)
 
 
 class Attention(nn.Module):
     """Gated multi-head attention with an optional additive bias."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
-                 gating: bool = True, dtype=torch.float32):
+                 dropout: float = 0.0, gating: bool = True,
+                 dtype=torch.float32):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
+        self.dropout = dropout
         inner = heads * dim_head
         self.to_q = Dense(dim, inner, bias=False, dtype=dtype)
         self.to_kv = Dense(dim, inner * 2, bias=False, dtype=dtype)
@@ -166,30 +206,46 @@ class Attention(nn.Module):
         return self.to_out(out_merged)
 
     def forward(self, x, mask=None, attn_bias=None,
-                tie_dim: Optional[int] = None, attn_bias_repeat: int = 1):
+                tie_dim: Optional[int] = None, attn_bias_repeat: int = 1,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """Self-attention. x (b, n, d); mask (b, n) bool; attn_bias
         (b // attn_bias_repeat, heads, n, n). Cross-attention (the JAX
-        module's `context`) has no caller on the ported slice."""
+        module's `context`) has no caller on the ported slice. With
+        `train=True` and dropout > 0 the softmax weights are dropped out
+        on the plain path."""
         h, dh = self.heads, self.dim_head
         q, k, v = self.project_qkv(x)                 # (b, h, n, dh)
+        drop = train and self.dropout > 0.0
 
         if tie_dim is None:
             b_all, n_q, n_k = q.shape[0], q.shape[-2], k.shape[-2]
             spec = active_kernel_spec()
             if spec is not None and (n_q != n_k or not spec.covers(n_q)):
                 spec = None
-            if spec is not None and spec.backend == "auto":
+            if spec is not None and spec.backend == "auto" and not drop:
                 return self._block_sparse(q, k, v, x, mask, attn_bias,
                                           attn_bias_repeat, spec)
             if spec is not None:
-                # "masked": the pattern as a -1e9 additive bias on the
-                # edge bias; the fused attention then replaces masked
-                # logits, as the JAX package's masked backend does
+                # "masked" (or "auto" under active dropout: K2 has no
+                # dropout): the pattern as a -1e9 additive bias on the
+                # edge bias; the attention then replaces masked logits,
+                # as the JAX package's masked backend does
                 fill = torch.where(
                     torch.as_tensor(spec.token_mask(), device=q.device),
                     0.0, MASK_VALUE)[None, None]
                 attn_bias = fill if attn_bias is None else \
                     attn_bias + fill.to(attn_bias.dtype)
+            if drop:
+                warnings.warn(
+                    f"fused attention has no dropout, and attention "
+                    f"dropout ({self.dropout}) is active in a training "
+                    f"pass: this layer takes the plain attention path. Set "
+                    f"attn_dropout=0.0 or run with train=False to keep the "
+                    f"kernel.", stacklevel=2)
+                return self.finish(self._plain_dropout(
+                    q, k, v, mask, attn_bias, attn_bias_repeat, generator),
+                    x)
             bias = None
             if attn_bias is not None:
                 # the kernel replays the (b, heads) bias over the fold by
@@ -223,8 +279,27 @@ class Attention(nn.Module):
             pair_mask = mask[:, None, :, None] & mask[:, None, None, :]
             dots = dots.masked_fill(~pair_mask, MASK_VALUE)
         attn = torch.softmax(dots, dim=-1)
+        if drop:
+            attn = dropout(attn, self.dropout, generator)
         out = torch.einsum("bhij,bhjd->bhid", attn, v)
         return self.finish(out, x)
+
+    def _plain_dropout(self, q, k, v, mask, attn_bias, attn_bias_repeat,
+                       generator):
+        """The plain attention with dropout on the softmax weights: the
+        fused contract (fp32 logits and softmax, masked logits replaced by
+        -1e9 after the bias add) plus dropout before the product with v."""
+        dots = torch.einsum("bhid,bhjd->bhij", q, k).float()
+        if attn_bias is not None:
+            if attn_bias_repeat != 1:
+                attn_bias = attn_bias.repeat_interleave(attn_bias_repeat,
+                                                        dim=0)
+            dots = dots + attn_bias.float()
+        if mask is not None:
+            pair_mask = mask[:, None, :, None] & mask[:, None, None, :]
+            dots = dots.masked_fill(~pair_mask, MASK_VALUE)
+        attn = dropout(torch.softmax(dots, dim=-1), self.dropout, generator)
+        return torch.einsum("bhij,bhjd->bhid", attn.to(v.dtype), v)
 
     def _block_sparse(self, q, k, v, x, mask, attn_bias, attn_bias_repeat,
                       spec):
@@ -268,7 +343,7 @@ class AxialAttention(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int = 64,
                  row_attn: bool = True, col_attn: bool = False,
                  accept_edges: bool = False,
-                 global_query_attn: bool = False,
+                 global_query_attn: bool = False, dropout: float = 0.0,
                  sparse_kernel_ok: bool = True, dtype=torch.float32):
         super().__init__()
         if row_attn == col_attn:
@@ -279,12 +354,13 @@ class AxialAttention(nn.Module):
         self.sparse_kernel_ok = sparse_kernel_ok
         self.norm = LayerNorm(dim, dtype)
         self.attn = Attention(dim, heads=heads, dim_head=dim_head,
-                              dtype=dtype)
+                              dropout=dropout, dtype=dtype)
         self.edges_to_attn_bias = Dense(dim, heads, bias=False,
                                         dtype=dtype) if accept_edges \
             else None
 
-    def forward(self, x, edges=None, mask=None):
+    def forward(self, x, edges=None, mask=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         b, height, width, d = x.shape
         x = self.norm(x)
 
@@ -309,7 +385,8 @@ class AxialAttention(nn.Module):
             out = self.attn(
                 x_fold, mask=mask_fold, attn_bias=attn_bias,
                 tie_dim=axial_dim if self.global_query_attn else None,
-                attn_bias_repeat=axial_dim if attn_bias is not None else 1)
+                attn_bias_repeat=axial_dim if attn_bias is not None else 1,
+                train=train, generator=generator)
 
         if self.row_attn:
             return out.reshape(b, height, width, d)

@@ -160,10 +160,16 @@ def _launch(q, k, v, bias, q_mask, k_mask, heads, bias_repeat, layout=0):
     return out
 
 
+# the profiler range around the backward's recompute, so a trace can
+# tell its kernels from the forward's
+BACKWARD_RANGE = "fused_attention.backward (plain recompute)"
+
+
 class _FusedAttention(torch.autograd.Function):
     """Kernel forward; the backward recomputes through
-    `attention_reference` (the counterpart of `_fused_attention_vjp`).
-    Masks get no gradient; the bias gradient sums over the fold."""
+    `attention_reference` (the counterpart of `_fused_attention_vjp`)
+    under the profiler range `BACKWARD_RANGE`. Masks get no gradient; the
+    bias gradient sums over the fold."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, q_mask, k_mask, heads, bias_repeat):
@@ -175,7 +181,8 @@ class _FusedAttention(torch.autograd.Function):
     def backward(ctx, grad):
         q, k, v, bias, q_mask, k_mask = ctx.saved_tensors
         inputs = [q, k, v] + ([] if bias is None else [bias])
-        with torch.enable_grad():
+        with torch.enable_grad(), \
+                torch.profiler.record_function(BACKWARD_RANGE):
             leaves = [t.detach().requires_grad_() for t in inputs]
             out = attention_reference(
                 *leaves[:3], bias=leaves[3] if bias is not None else None,

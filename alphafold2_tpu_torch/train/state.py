@@ -1,0 +1,244 @@
+"""Train state: model, optimizer, step and generator (counterpart of
+`alphafold2_tpu/train/state.py`).
+
+`adam(...)` reproduces the JAX package's optax chain as one optimizer:
+
+- `clip_by_global_norm(max_grad_norm)`, which scales every gradient by
+  `max_norm / max(norm, max_norm)` (no epsilon, unlike
+  `torch.nn.utils.clip_grad_norm_`);
+- Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8, eps_root 0),
+  its learning rate taken from the schedule at the inner update count
+  (0 for the first update), as optax's `scale_by_learning_rate` does;
+- `optax.MultiSteps(every_k_schedule=grad_accum_every)`: the running mean
+  of k micro-step gradients (`acc + (g - acc) / (n + 1)`), applied on the
+  k-th step, and no update in between.
+
+The three schedules of `alphafold2_tpu/train/state.py:33-71`: constant;
+warmup alone (a linear ramp from 0, then the peak held); warmup then
+cosine decay to `end_lr_ratio * learning_rate`.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Sequence
+
+import torch
+from torch import nn
+
+Schedule = Callable[[int], float]
+
+
+def _linear(init: float, end: float, steps: int) -> Schedule:
+    if steps <= 0:
+        return lambda count: init
+
+    def schedule(count):
+        count = min(max(count, 0), steps)
+        return (init - end) * (1 - count / steps) + end
+
+    return schedule
+
+
+def _cosine(init: float, decay_steps: int, alpha: float) -> Schedule:
+    if not decay_steps > 0:
+        raise ValueError(f"cosine decay needs positive decay_steps, got "
+                         f"{decay_steps}")
+
+    def schedule(count):
+        count = min(count, decay_steps)
+        cosine = 0.5 * (1 + math.cos(math.pi * count / decay_steps))
+        return init * ((1 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def _join(schedules: Sequence[Schedule], boundaries: Sequence[int]
+          ) -> Schedule:
+    def schedule(count):
+        out = schedules[0](count)
+        for boundary, sched in zip(boundaries, schedules[1:]):
+            if count >= boundary:
+                out = sched(count - boundary)
+        return out
+
+    return schedule
+
+
+def learning_rate_schedule(learning_rate: float, warmup_steps: int = 0,
+                           decay_steps: Optional[int] = None,
+                           end_lr_ratio: float = 0.1) -> Schedule:
+    """The learning rate at each inner update count."""
+    if decay_steps is not None:
+        init = 0.0 if warmup_steps > 0 else learning_rate
+        end = end_lr_ratio * learning_rate
+        alpha = 0.0 if learning_rate == 0.0 else end / learning_rate
+        decay = max(decay_steps, warmup_steps + 1)
+        return _join([_linear(init, learning_rate, warmup_steps),
+                      _cosine(learning_rate, decay - warmup_steps, alpha)],
+                     [warmup_steps])
+    if warmup_steps > 0:
+        # warmup alone: ramp to the peak, then hold it
+        return _join([_linear(0.0, learning_rate, warmup_steps),
+                      lambda count: learning_rate], [warmup_steps])
+    return lambda count: learning_rate
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor],
+                        max_norm: float) -> List[torch.Tensor]:
+    """`optax.clip_by_global_norm`: every gradient scaled by
+    max_norm / max(global norm, max_norm), without a host sync."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+        list(grads))))
+    return torch._foreach_mul(list(grads),
+                              max_norm / torch.clamp(norm, min=max_norm))
+
+
+class Adam:
+    """The optax chain over a list of fp32 parameters. `update(grads)`
+    accumulates or applies; state lives in `mu`, `nu` (Adam moments),
+    `count` (updates applied), `mini_step` and `acc` (the MultiSteps
+    accumulator, None when grad_accum_every is 1)."""
+
+    def __init__(self, params: Sequence[torch.Tensor], schedule: Schedule,
+                 grad_accum_every: int = 1,
+                 max_grad_norm: Optional[float] = None, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        if grad_accum_every < 1:
+            raise ValueError(f"grad_accum_every must be >= 1, got "
+                             f"{grad_accum_every}")
+        self.params: List[torch.Tensor] = list(params)
+        self.schedule = schedule
+        self.grad_accum_every = grad_accum_every
+        self.max_grad_norm = max_grad_norm
+        self.b1, self.b2, self.eps = b1, b2, eps
+        zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
+        self.mu, self.nu = zeros(), zeros()
+        self.count = 0
+        self.mini_step = 0
+        self.acc = zeros() if grad_accum_every > 1 else None
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every state tensor (moments and accumulator)."""
+        return self.mu + self.nu + (self.acc or [])
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor]) -> bool:
+        """One micro-step; True when the parameters were updated."""
+        grads = list(grads)
+        if self.acc is not None:
+            diff = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(diff, float(self.mini_step + 1))
+            torch._foreach_add_(self.acc, diff)
+            self.mini_step = (self.mini_step + 1) % self.grad_accum_every
+            if self.mini_step:
+                return False
+            grads = [a.clone() for a in self.acc]
+            for a in self.acc:
+                a.zero_()
+        if self.max_grad_norm is not None:
+            grads = clip_by_global_norm(grads, self.max_grad_norm)
+        lr = self.schedule(self.count)
+        self.count += 1
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
+        step = torch._foreach_div(self.mu, 1.0 - self.b1 ** self.count)
+        denom = torch._foreach_div(self.nu, 1.0 - self.b2 ** self.count)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_div_(step, denom)
+        torch._foreach_add_(self.params, step, alpha=-lr)
+        return True
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mini_step": self.mini_step,
+                "mu": self.mu, "nu": self.nu, "acc": self.acc}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        for name in ("mu", "nu", "acc"):
+            mine, theirs = getattr(self, name), state[name]
+            if (mine is None) != (theirs is None):
+                raise ValueError(f"optimizer state {name!r} does not match "
+                                 f"this optimizer's accumulation")
+            for dst, src in zip(mine or [], theirs or []):
+                dst.copy_(src)
+
+
+@dataclass
+class AdamSpec:
+    """What `adam(...)` returns: the chain's settings, and a factory that
+    builds the optimizer over a model's parameters."""
+
+    learning_rate: float = 3e-4
+    grad_accum_every: int = 1
+    max_grad_norm: Optional[float] = None
+    warmup_steps: int = 0
+    decay_steps: Optional[int] = None
+    end_lr_ratio: float = 0.1
+
+    @property
+    def schedule(self) -> Schedule:
+        return learning_rate_schedule(self.learning_rate, self.warmup_steps,
+                                      self.decay_steps, self.end_lr_ratio)
+
+    def __call__(self, params: Sequence[torch.Tensor]) -> Adam:
+        return Adam(params, self.schedule, self.grad_accum_every,
+                    self.max_grad_norm)
+
+
+def adam(learning_rate: float = 3e-4, grad_accum_every: int = 1,
+         max_grad_norm: Optional[float] = None, warmup_steps: int = 0,
+         decay_steps: Optional[int] = None,
+         end_lr_ratio: float = 0.1) -> AdamSpec:
+    """The reference's optimizer (Adam 3e-4) as the JAX package's optax
+    chain; warmup, cosine decay and clipping default off."""
+    return AdamSpec(learning_rate, grad_accum_every, max_grad_norm,
+                    warmup_steps, decay_steps, end_lr_ratio)
+
+
+def model_device(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+@dataclass
+class TrainState:
+    """The model (its parameters are the trained state), the optimizer,
+    the number of train steps taken (micro-steps included, as flax's
+    `TrainState.step`) and the generator that MLM noise, dropout and the
+    recycle count draw from (the counterpart of `state.rng`)."""
+
+    model: nn.Module
+    optimizer: Adam
+    generator: torch.Generator
+    step: int = 0
+
+    @classmethod
+    def create(cls, model: nn.Module, tx: Callable[..., Adam],
+               generator: Optional[torch.Generator] = None,
+               seed: int = 0) -> "TrainState":
+        """`tx` is `adam(...)` (or any factory of params -> optimizer);
+        the generator defaults to one on the model's device seeded with
+        `seed`."""
+        if generator is None:
+            generator = torch.Generator(
+                device=model_device(model)).manual_seed(seed)
+        return cls(model, tx(list(model.parameters())), generator)
+
+    @property
+    def params(self) -> List[torch.Tensor]:
+        return self.optimizer.params
+
+    @property
+    def accumulator(self) -> Optional[List[torch.Tensor]]:
+        return self.optimizer.acc
+
+    def apply_gradients(self, grads: Sequence[torch.Tensor]) -> "TrainState":
+        self.optimizer.update(grads)
+        self.step += 1
+        return self

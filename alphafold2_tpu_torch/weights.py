@@ -28,8 +28,7 @@ import numpy as np
 import torch
 
 # top-level subtrees of the JAX params that the port's slice does not run
-SKIPPED = ("to_template_embed", "extra_msa_evoformer", "mlm",
-           "embedd_project")
+SKIPPED = ("to_template_embed", "extra_msa_evoformer", "embedd_project")
 SKIPPED_PREFIXES = ("template_", "seq_embed_project_", "msa_embed_project_")
 
 # flax auto-generated module names -> the port's attribute names

@@ -44,7 +44,26 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and 300 residues in the 512 bucket (72 K2 + 24 K1 launches each), one
    of 200 residues in the 256 bucket (0 K2 + 96 K1), and a step-mode
    fold whose steps run under a spec re-planned from the first pass's
-   distogram; then a profile of one 512-bucket fold.
+   distogram; then a profile of one 512-bucket fold;
+9. train-check: K1's autograd (the kernel forward, the backward's plain
+   recompute) against the plain version's autograd at the train step's
+   triangle, MSA row and MSA column shapes, fp32 and bf16 (gradients
+   against fp32 math on the same values, error over the largest
+   reference gradient); then a small fp32 train step on the card against
+   the same step on the CPU (same weights, same MLM noise from one CPU
+   generator): loss within 1e-4, every gradient within 1e-3;
+10. train: the contract configuration (`train_wall.py --config
+   contract`: dim 256, depth 2, heads 8, dim_head 64, bf16, unrolled
+   trunk, 256 residues, 5 MSA rows, distogram + MLM, adam 3e-4): 8 K1
+   launches per step, 30 steps on one fixed batch with the mean loss of
+   the last 5 below the first 5's, the step's wall time, TFLOP/s, MFU
+   and peak memory, and a profile of one step (K1's forward and the
+   backward's plain recompute on lines of their own);
+11. train-recycled: the default ModelConfig with `predict_coords` and the
+   remat trunk under `make_recycled_train_step(max_recycles=3)`: one
+   step with a finite loss and 48 + 24 r K1 launches (r its recycle
+   count), then a checkpoint saved and restored on the card (bit-equal,
+   and the next step draws the same r from the restored generator).
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -725,11 +744,14 @@ def phase_serve():
 
 
 def phase_profile(run, title, unprofiled=5):
-    """Where one fold's device time goes: torch.profiler over one call of
-    `run`, kernel time summed by name. The card's busy share is read
-    against the median wall time of `unprofiled` calls of the same
-    fold, because the profiler slows the host that launches the kernels
-    and so stretches the fold it traces."""
+    """Where one fold's (or train step's) device time goes: torch.profiler
+    over one call of `run`, kernel time summed by name; the device time
+    of the kernels inside K1's backward recompute range is also given on
+    its own line. The card's busy share is read against the median wall
+    time of `unprofiled` calls of the same run, because the profiler
+    slows the host that launches the kernels and so stretches the run it
+    traces. Returns (busy ms, median wall ms, {label: (ms, calls)})."""
+    from alphafold2_tpu_torch.ops.attention import BACKWARD_RANGE
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     walls = []
@@ -747,7 +769,15 @@ def phase_profile(run, title, unprofiled=5):
         torch.cuda.synchronize()
         traced_us = (time.perf_counter() - t0) * 1e6
     rows = {}
+    # K1's backward recompute is an annotation, not a kernel: the device
+    # time of its host-side range is the kernels launched inside it
+    # (already counted under their own names)
+    recompute = (0.0, 0)
     for e in prof.key_averages():
+        if e.key == BACKWARD_RANGE:
+            if e.device_type != DeviceType.CUDA:
+                recompute = (e.device_time_total, e.count)
+            continue
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
         if re.search(r"fused_attention\w*_kernel", e.key):
@@ -767,6 +797,14 @@ def phase_profile(run, title, unprofiled=5):
     for label, (us, calls) in sorted(rows.items(), key=lambda r: -r[1][0])[:12]:
         log(f"  {us / 1e3:9.3f} ms {100 * us / max(busy_us, 1):5.1f} % "
             f"{calls:5d} x {label}")
+    if recompute[1]:
+        log(f"  {recompute[0] / 1e3:9.3f} ms "
+            f"{100 * recompute[0] / max(busy_us, 1):5.1f} % "
+            f"{recompute[1]:5d} x {BACKWARD_RANGE} (the kernels inside "
+            f"it, counted above under their names)")
+    table = {label: (us / 1e3, calls) for label, (us, calls) in rows.items()}
+    table[BACKWARD_RANGE] = (recompute[0] / 1e3, recompute[1])
+    return busy_us / 1e3, wall_us / 1e3, table
 
 
 def count_fold(run):
@@ -891,6 +929,209 @@ def phase_executor(model, cfg):
     return k2_total, k1_total, ex, sparse_batch, spec
 
 
+# the contract configuration's K1 shapes: b=1, 256 residues, 5 MSA rows,
+# heads 8, dim_head 64 (the 256 bucket's fold shapes)
+TRAIN_K1_SHAPES = ("triangle", "msa_row", "msa_col")
+TRAIN_STEPS = 30
+
+
+def attention_grads(fn, kw, dtype, cot):
+    """Gradients of sum(fn(...) * cot) with respect to q, k, v (in
+    `dtype`) and the fp32 bias."""
+    leaves = [kw[key].to(dtype).requires_grad_() for key in ("q", "k", "v")]
+    bias = None if kw["bias"] is None else \
+        kw["bias"].clone().requires_grad_()
+    out = fn(*leaves, bias=bias, q_mask=kw["q_mask"], k_mask=kw["k_mask"],
+             heads=kw["heads"], bias_repeat=kw["bias_repeat"])
+    inputs = leaves + ([] if bias is None else [bias])
+    return torch.autograd.grad((out.float() * cot).sum(), inputs)
+
+
+def phase_train_check():
+    """K1's autograd at the train step's shapes, then a small fp32 train
+    step on the card against the CPU. Returns the worst K1 gradient error
+    per dtype."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    dev = torch.device("cuda")
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in TRAIN_K1_SHAPES:
+            kw = attention_inputs(shape, torch.float32, dev, seed=6)
+            # the same values in both dtypes: round once to `dtype`
+            for key in ("q", "k", "v"):
+                kw[key] = kw[key].to(dtype).float()
+            g = torch.Generator(device=dev).manual_seed(7)
+            cot = torch.randn(kw["q"].shape, generator=g, device=dev)
+            before = attn.launch_count.value
+            got = attention_grads(attn.fused_attention, kw, dtype, cot)
+            if attn.launch_count.value != before + 1:
+                raise AssertionError("K1's forward was not the kernel")
+            ref = attention_grads(attn.attention_reference, kw,
+                                  torch.float32, cot)
+            errs = [float((a.float() - b).abs().max() / b.abs().max())
+                    for a, b in zip(got, ref)]
+            tol = TOLERANCE[dtype]
+            log(f"train-check K1 autograd {shape} {str(dtype)[6:]} "
+                f"B={kw['q'].shape[0]} N={kw['q'].shape[1]}: gradient "
+                f"error over the largest reference gradient "
+                f"{', '.join(f'{n} {e:.3e}' for n, e in zip('qkvb', errs))}"
+                f" (tolerance {tol:.0e})")
+            if not max(errs) <= tol or not all(torch.isfinite(x).all()
+                                               for x in got):
+                raise AssertionError(f"K1 autograd {shape} {dtype}: "
+                                     f"{errs} > {tol}")
+            worst[dtype] = max(worst.get(dtype, 0.0), max(errs))
+            del got, ref
+    phase_train_parity()
+    return worst
+
+
+def phase_train_parity():
+    """A small fp32 distogram + MLM model (remat trunk): one train step on
+    the card against the same step on the CPU, from the same weights,
+    with the MLM noise drawn from one seeded CPU generator on both."""
+    from alphafold2_tpu_torch import Alphafold2
+    from alphafold2_tpu_torch.data.synthetic import synthetic_batch
+    from alphafold2_tpu_torch.ops import attention as attn
+    from alphafold2_tpu_torch.train import (TrainState, adam,
+                                            make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = synthetic_batch(np.random.default_rng(SEED), seq_len=32,
+                            msa_depth=3, pad_fraction=0.25)
+    results = []
+    for device in ("cpu", "cuda"):
+        model = Alphafold2(dim=32, depth=2, heads=2, dim_head=16,
+                           device=device,
+                           generator=torch.Generator().manual_seed(SEED))
+        perturb(model, SEED + 1)
+        state = TrainState.create(model, adam(1e-3),
+                                  generator=torch.Generator().manual_seed(3))
+        seen = []
+        apply = state.apply_gradients
+        state.apply_gradients = lambda grads: (
+            seen.extend(x.detach().cpu() for x in grads), apply(grads))[1]
+        attn.launch_count.reset()
+        state, metrics = make_train_step(model)(
+            state, {k: v.to(device) for k, v in batch.items()})
+        results.append((float(metrics["loss"]), seen,
+                        attn.launch_count.value))
+    (loss_cpu, g_cpu, _), (loss_gpu, g_gpu, launches) = results
+    gerr = max(float((a - b).abs().max()) for a, b in zip(g_cpu, g_gpu))
+    log(f"train-check small fp32 step (dim 32, depth 2, n 32, remat) card "
+        f"vs cpu: loss {loss_gpu:.6f} vs {loss_cpu:.6f} (abs err "
+        f"{abs(loss_gpu - loss_cpu):.3e}, tolerance 1e-4), gradients max "
+        f"abs err {gerr:.3e} (tolerance 1e-3), K1 launches {launches}")
+    # 4 attentions x 2 layers, forward and the remat recompute
+    if launches != 16:
+        raise AssertionError(f"K1 launched {launches} times, expected 16")
+    if not abs(loss_gpu - loss_cpu) <= 1e-4 or not gerr <= 1e-3:
+        raise AssertionError("card train step differs from the cpu step")
+
+
+def phase_train():
+    """The contract configuration: K1 launches per step, the loss over
+    TRAIN_STEPS steps on one batch, the step's numbers, a profile."""
+    from alphafold2_tpu_torch import train_wall
+    from alphafold2_tpu_torch.utils.flops import train_step_flops
+    model, step, state, batch = train_wall.setup("contract")
+    flops = train_step_flops(model, batch)
+    torch.cuda.reset_peak_memory_stats()
+    state, walls, history = train_wall.time_steps(step, state, batch, 2,
+                                                  TRAIN_STEPS - 2)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {h["k1_launches"] for h in history}
+    losses = [h["loss"] for h in history]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    median = float(np.median(walls))
+    tflops = flops / (median / 1e3) / 1e12
+    matmul = train_wall.matmul_flops_per_s()
+    log(f"train contract (dim 256, depth 2, bf16, unrolled, 256 residues, "
+        f"5 MSA rows): K1 launches per step {sorted(launches)}; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, mean of the first 5 "
+        f"{first:.4f}, of the last 5 {last:.4f}")
+    log(f"train contract: median wall {median:.2f} ms over {len(walls)} "
+        f"steps ({min(walls):.2f}-{max(walls):.2f}), {flops / 1e9:.1f} "
+        f"GFLOP a step -> {tflops:.2f} TFLOP/s, MFU "
+        f"{100 * tflops * 1e12 / train_wall.DATASHEET_BF16_FLOPS:.2f} % of "
+        f"the 989 TFLOP/s datasheet bf16 peak, "
+        f"{100 * tflops * 1e12 / matmul:.2f} % of the {matmul / 1e12:.1f} "
+        f"TFLOP/s an 8192^3 bf16 matmul reached; peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    if launches != {8}:
+        raise AssertionError(f"K1 launched {launches} times a step, "
+                             f"expected 8")
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    busy, wall, table = phase_profile(lambda: step(state, batch),
+                                      "train step, contract configuration")
+    from alphafold2_tpu_torch.ops.attention import BACKWARD_RANGE
+    record = {"k1_launches_per_step": launches.pop(),
+              "median_ms": median, "wall_ms": walls, "loss_first": losses[0],
+              "loss_last": losses[-1], "step_gflop": flops / 1e9,
+              "tflops": tflops, "matmul_tflops": matmul / 1e12,
+              "peak_memory_gib": peak / 2**30, "busy_ms": busy,
+              "unprofiled_wall_ms": wall,
+              "k1_forward_ms": table.get("fused_attention (K1)",
+                                         (0.0, 0))[0],
+              "backward_recompute_ms": table[BACKWARD_RANGE][0]}
+    log("train: " + json.dumps(record))
+    return record
+
+
+def phase_train_recycled():
+    """The default ModelConfig with predict_coords and the remat trunk:
+    one recycled step, its K1 launches, then a checkpoint round trip."""
+    import tempfile
+
+    from alphafold2_tpu_torch import train_wall
+    from alphafold2_tpu_torch.train import CheckpointManager
+    model, step, state, batch = train_wall.setup("default")
+    depth = len(model.net.layers)
+    torch.cuda.reset_peak_memory_stats()
+    state, walls, history = train_wall.time_steps(step, state, batch, 0, 1)
+    (h,) = history
+    r = int(h["recycles"])
+    want = 8 * depth + 4 * depth * r
+    log(f"train-recycled default ModelConfig (dim 256, depth {depth}, bf16, "
+        f"remat, predict_coords, 256 residues): r={r}, loss "
+        f"{h['loss']:.4f} (coords {h['coords_loss']:.4f}, confidence "
+        f"{h['confidence_loss']:.4f}, mlm {h['mlm_loss']:.4f}), wall "
+        f"{walls[0]:.1f} ms (first step), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, K1 launches "
+        f"{h['k1_launches']} (expected 48 + 24 r = {want})")
+    if not np.isfinite(h["loss"]) or h["k1_launches"] != want:
+        raise AssertionError(f"recycled step: loss {h['loss']}, K1 "
+                             f"{h['k1_launches']} != {want}")
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        mgr.save(state)
+        _, _, fresh, _ = train_wall.setup("default")
+        perturb(fresh.model, SEED + 5)
+        restored = mgr.restore(fresh)
+    same = all(torch.equal(a, b) for a, b in zip(
+        state.model.state_dict().values(),
+        restored.model.state_dict().values()))
+    same &= all(torch.equal(a, b) for a, b in zip(
+        state.optimizer.tensors(), restored.optimizer.tensors()))
+    same &= torch.equal(state.generator.get_state(),
+                        restored.generator.get_state())
+    same &= (state.step, state.optimizer.count) == \
+        (restored.step, restored.optimizer.count)
+    metrics = []
+    for st in (state, restored):
+        st, m = step(st, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    a, b = metrics
+    log(f"train-recycled checkpoint round trip on the card: bit-equal "
+        f"{same}; next step r {a['recycles']:.0f} / {b['recycles']:.0f}, "
+        f"loss {a['loss']:.6f} / {b['loss']:.6f}")
+    if not same or a["recycles"] != b["recycles"] or \
+            not abs(a["loss"] - b["loss"]) <= 1e-3 * abs(a["loss"]):
+        raise AssertionError("checkpoint round trip differs")
+    return {"r": r, "k1_launches": h["k1_launches"], "loss": h["loss"]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=None,
@@ -937,6 +1178,10 @@ def main(argv=None):
     phase_profile(lambda: ex.run(batch, NUM_RECYCLES, kernel=spec),
                   f"executor fold {SPARSE_LENGTHS[-1]} residues, bucket "
                   f"{SPARSE_BUCKET} ({spec.label})")
+    del ex, model
+    grad_worst = phase_train_check()
+    train = phase_train()
+    recycled = phase_train_recycled()
     record = {"kernels": [{
         "name": "fused_attention",
         "route": "cuda",
@@ -945,6 +1190,14 @@ def main(argv=None):
         "launches": launches,
         "launches_per_fold": launches // len(LENGTHS),
         "launches_per_fold_512": k1_sparse // len(SPARSE_LENGTHS),
+        "launches_per_train_step": train["k1_launches_per_step"],
+        "launches_per_recycled_train_step": recycled["k1_launches"],
+        "recycles_of_that_step": recycled["r"],
+        "train_step_ms": train["median_ms"],
+        "train_k1_forward_ms": train["k1_forward_ms"],
+        "train_backward_recompute_ms": train["backward_recompute_ms"],
+        "max_grad_err_f32": grad_worst[torch.float32],
+        "max_grad_err_bf16": grad_worst[torch.bfloat16],
         "max_abs_err": worst[torch.bfloat16],
         "max_err_f32": worst[torch.float32],
         "max_err_bf16": worst[torch.bfloat16],

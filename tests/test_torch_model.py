@@ -79,7 +79,8 @@ def padded_mask(b, n, valid=VALID):
 def test_constants_match():
     for name in ("MAX_NUM_MSA", "MAX_NUM_TEMPLATES", "NUM_AMINO_ACIDS",
                  "NUM_EMBEDDS_TR", "DISTOGRAM_BUCKETS",
-                 "DISTOGRAM_MIN_DIST", "DISTOGRAM_MAX_DIST"):
+                 "DISTOGRAM_MIN_DIST", "DISTOGRAM_MAX_DIST",
+                 "IGNORE_INDEX"):
         assert getattr(pt_constants, name) == getattr(jax_constants, name)
 
 
@@ -337,8 +338,8 @@ def test_bridge_refuses_strays_and_gaps(models):
 
 
 @pytest.mark.parametrize("case", [
-    "templates", "extra_msa", "train", "ring_attention", "kernel",
-    "predict_angles"])
+    "templates", "extra_msa", "structure_module_type", "ring_attention",
+    "kernel", "predict_angles"])
 def test_unported_options_raise(models, case):
     _, _, pm, batch = models
     tb = torch_batch(batch)
@@ -347,8 +348,9 @@ def test_unported_options_raise(models, case):
             pm(**tb, templates_feats=torch.zeros(1, 1, N, N, 32))
         elif case == "extra_msa":
             pm(**tb, extra_msa=tb["msa"])
-        elif case == "train":
-            pm(**tb, train=True)
+        elif case == "structure_module_type":
+            pt_af2.Alphafold2(**dict(MODEL_KW, structure_module_type="egnn"),
+                              device="cpu")
         elif case == "kernel":
             # fold(kernel=KernelSpec) is ported (tests/test_torch_serve.py);
             # the model-level block-sparse row attention is not
@@ -387,6 +389,13 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "alphafold2_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    names = {str(f.relative_to(REPO)) for f in files}
+    for covered in ("alphafold2_tpu_torch/train/loop.py",
+                    "alphafold2_tpu_torch/utils/flops.py",
+                    "alphafold2_tpu_torch/scripts/train_distogram.py",
+                    "alphafold2_tpu_torch/core/geometry.py",
+                    "alphafold2_tpu_torch/train_wall.py"):
+        assert covered in names, covered
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert not bad, bad
 

@@ -12,6 +12,15 @@ NUM_AMINO_ACIDS = 21
 NUM_EMBEDDS_TR = 1280  # ESM-1b embedding width
 
 DISTOGRAM_BUCKETS = 37
+# trRosetta-style angle heads
+THETA_BUCKETS = 25
+PHI_BUCKETS = 13
+OMEGA_BUCKETS = 25
+
+# pretrained-LM embedding widths the model keeps a projector for
+MSA_EMBED_DIM = 768         # ESM MSA-Transformer
+PROTTRAN_EMBED_DIM = 1024   # ProtT5-XL
+ESM_EMBED_DIM = 1280        # ESM-1b
 
 # label of positions a cross-entropy skips
 IGNORE_INDEX = -100

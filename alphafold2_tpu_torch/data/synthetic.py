@@ -1,5 +1,7 @@
 """Synthetic fixed-shape batches and serving requests (counterpart of
-`alphafold2_tpu/data/synthetic.py:17-99`).
+`alphafold2_tpu/data/synthetic.py:17-99`), and the template and
+extra-MSA inputs of a full-feature fold (`synthetic_features`, the
+port's own).
 
 Draws from a `numpy.random.Generator` so the same seed gives the same
 tokens on every device, and returns tensors on the device asked for.
@@ -11,6 +13,11 @@ import numpy as np
 import torch
 
 from alphafold2_tpu_torch import constants
+
+# the model's default template feature widths (Alphafold2's
+# templates_dim and templates_angles_feats_dim)
+TEMPLATES_DIM = 32
+TEMPLATES_ANGLES_DIM = 55
 
 
 def synthetic_batch(
@@ -42,6 +49,44 @@ def synthetic_batch(
         out["coords"] = np.cumsum(steps, axis=1)
     return {k: torch.as_tensor(np.array(v), device=device)
             for k, v in out.items()}
+
+
+def synthetic_features(
+    rng: np.random.Generator,
+    seq_len: int = 128,
+    valid: int = None,
+    num_templates: int = 4,
+    extra_depth: int = 1024,
+    device="cpu",
+):
+    """The inputs of one fold (batch 1) beyond seq/msa, at the model's
+    default widths: templates_feats (1, t, n, n, 32), templates_angles
+    (1, t, n, 55), templates_mask (1, t, n), extra_msa and extra_msa_mask
+    (1, e, n). The first `valid` residues are real (all when None), the
+    rest padding. The last template is missing (fully masked) and the
+    one before it covers only the first two thirds of the real residues;
+    each extra row covers a random prefix of at least half of them."""
+    valid = seq_len if valid is None else valid
+    real = np.arange(seq_len) < valid
+    templates_mask = np.broadcast_to(real, (1, num_templates,
+                                            seq_len)).copy()
+    if num_templates > 1:
+        templates_mask[:, -2, (2 * valid) // 3:] = False
+        templates_mask[:, -1] = False
+    cover = rng.integers(valid // 2, valid + 1, (1, extra_depth, 1))
+    out = {
+        "templates_feats": rng.standard_normal(
+            (1, num_templates, seq_len, seq_len, TEMPLATES_DIM),
+            dtype=np.float32),
+        "templates_angles": rng.standard_normal(
+            (1, num_templates, seq_len, TEMPLATES_ANGLES_DIM),
+            dtype=np.float32),
+        "templates_mask": templates_mask,
+        "extra_msa": rng.integers(0, constants.NUM_AMINO_ACIDS,
+                                  (1, extra_depth, seq_len)),
+        "extra_msa_mask": np.arange(seq_len) < cover,
+    }
+    return {k: torch.as_tensor(v, device=device) for k, v in out.items()}
 
 
 def synthetic_requests(

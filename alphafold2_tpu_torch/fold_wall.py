@@ -3,6 +3,7 @@ port on one machine.
 
     python3 alphafold2_tpu_torch/fold_wall.py [--root DIR] [--folds N]
                                               [--bucket 256|512]
+                                              [--features none|full]
 
 `--root` is the checkout whose `alphafold2_tpu_torch` is imported (by
 default the one holding this file), so an unpacked older commit can be
@@ -13,9 +14,13 @@ chip_smoke.py folds it: `--bucket 256` (the default) folds a request of
 131 residues padded to the 256 bucket through `predict.fold` (dense, K1
 only); `--bucket 512` folds a request of 437 residues through
 `serve.executor.FoldExecutor` under the default buckets and the default
-`KernelPolicy` (the 512 bucket block-sparse: K2 and K1). Prints one JSON
-line: the root, the bucket, each timed fold's wall time (synchronised,
-ms) and their median.
+`KernelPolicy` (the 512 bucket block-sparse: K2 and K1). `--features
+full` (256 bucket only) folds the same request with the full model's
+inputs, as chip_smoke.py's fold-full phase does: t=4 templates (one
+missing, one partial) with their angle features and 1024 extra-MSA rows
+(`data.synthetic.synthetic_features`). Prints one JSON line: the root,
+the bucket, the features, each timed fold's wall time (synchronised, ms)
+and their median.
 """
 
 import argparse
@@ -32,7 +37,10 @@ def main():
     ap.add_argument("--folds", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--bucket", type=int, choices=(256, 512), default=256)
+    ap.add_argument("--features", choices=("none", "full"), default="none")
     args = ap.parse_args()
+    if args.features == "full" and args.bucket != 256:
+        ap.error("--features full folds the 256 bucket")
     # import the package from --root, never from beside this file
     sys.path[0] = os.path.abspath(args.root)
 
@@ -56,6 +64,12 @@ def main():
                               msa_depth=5, with_coords=False)
         req = {key: pad_to(val, 256, axis=val.dim() - 1)
                for key, val in req.items()}
+        if args.features == "full":
+            from alphafold2_tpu_torch.data.synthetic import \
+                synthetic_features
+            req.update(synthetic_features(np.random.default_rng(3),
+                                          seq_len=256, valid=131,
+                                          num_templates=4, extra_depth=1024))
         run = lambda: fold(model, **req, num_recycles=3)
     else:
         from alphafold2_tpu_torch.data.synthetic import synthetic_requests
@@ -82,7 +96,7 @@ def main():
     if not torch.isfinite(out.coords).all():
         raise AssertionError("non-finite coords")
     print(json.dumps({"root": args.root, "bucket": args.bucket,
-                      "wall_ms": walls,
+                      "features": args.features, "wall_ms": walls,
                       "median_ms": float(np.median(walls))}), flush=True)
     return 0
 

@@ -2,19 +2,31 @@
 `alphafold2_tpu/model/alphafold2.py:171-616`): the forward that
 `predict.fold` runs and the training forward.
 
-Token and relative-position embeddings, MSA-MLM noising in training, the
-outer-sum pair init, the recycling embedder, the main Evoformer, the
-distogram head on the symmetrised pair, the MLM loss, the single/pair
-projections, the IPA structure module and the lDDT confidence head. The
-trunk runs in `dtype` (bf16 by default in `ModelConfig`); the heads and
-the structure module are fp32.
+Token and relative-position embeddings (or pretrained embeddings through
+their projectors, `seq_embed` / `msa_embed` / `embedds`), MSA-MLM noising
+in training, the outer-sum pair init, the recycling embedder, the
+template pair stack and its pointwise attention into the pair, the
+template angle features as extra MSA rows, the extra-MSA Evoformer
+(global-query ingoing triangle attention), the main Evoformer, the
+distogram head on the symmetrised pair and the trRosetta angle heads,
+the MLM loss, the single/pair projections, the IPA structure module and
+the lDDT confidence head. The trunk runs in `dtype` (bf16 by default in
+`ModelConfig`); the heads and the structure module are fp32.
+
+Every module is built whatever the inputs of a call, as the JAX
+package's init-time coverage makes one params tree serve every input
+combination; the angle heads and the structure module exist only under
+`predict_angles` / `predict_coords`, as in the JAX tree. Modules are
+registered in the order the earlier slices registered theirs, the new
+ones after them, so `init_weights` draws the earlier modules' seeded
+weights unchanged.
 
 `train=True` noises the MSA and turns dropout on; both draw from the
 `generator` passed to `forward` (the default generator when None), and
-`ReturnValues.msa_mlm_loss` carries the MLM loss. Inputs and options the
-port does not run yet (templates, extra MSA, pretrained embeddings, angle
-heads, other structure modules, refinement) raise NotImplementedError
-naming their ROADMAP item.
+`ReturnValues.msa_mlm_loss` carries the MLM loss. Options the port does
+not run yet (other structure modules, refinement, the trunk menu of
+queue 1 items 10-11) raise NotImplementedError naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -22,14 +34,17 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from alphafold2_tpu_torch import constants
 from alphafold2_tpu_torch.device import resolve_device
-from alphafold2_tpu_torch.model.evoformer import Evoformer
+from alphafold2_tpu_torch.model.evoformer import (Evoformer,
+                                                  PairwiseAttentionBlock)
 from alphafold2_tpu_torch.model.mlm import MLM
-from alphafold2_tpu_torch.model.primitives import (Dense, LayerNorm,
-                                                   init_weights, not_ported)
+from alphafold2_tpu_torch.model.primitives import (Attention, Dense,
+                                                   LayerNorm, init_weights,
+                                                   not_ported)
 from alphafold2_tpu_torch.model.structure import StructureModule
 
 
@@ -46,14 +61,14 @@ class ReturnValues(NamedTuple):
     recyclables: Optional[Recyclables] = None
     confidence: Optional[torch.Tensor] = None    # raw (b, n, 1)
     msa_mlm_loss: Optional[torch.Tensor] = None  # scalar, train=True only
+    # angle logits (predict_angles): theta and phi from the pair before
+    # symmetrisation, omega from it or (symmetrize_omega) after
+    theta: Optional[torch.Tensor] = None         # (b, n, n, 25)
+    phi: Optional[torch.Tensor] = None           # (b, n, n, 13)
+    omega: Optional[torch.Tensor] = None         # (b, n, n, 25)
 
 
-_ITEM6 = "queue 1, item 6 (model/alphafold2.py)"
 _ITEM11 = "queue 1, item 11 (model/refiners.py)"
-# forward inputs of the JAX model that the port refuses
-_UNPORTED_INPUTS = frozenset({
-    "extra_msa", "extra_msa_mask", "seq_embed", "msa_embed",
-    "templates_feats", "templates_mask", "templates_angles", "embedds"})
 
 
 class Alphafold2(nn.Module):
@@ -77,6 +92,9 @@ class Alphafold2(nn.Module):
         extra_msa_evoformer_layers: int = 4,
         attn_dropout: float = 0.0,
         ff_dropout: float = 0.0,
+        templates_dim: int = 32,
+        templates_embed_layers: int = 4,
+        templates_angles_feats_dim: int = 55,
         predict_angles: bool = False,
         symmetrize_omega: bool = False,
         predict_coords: bool = False,
@@ -86,6 +104,7 @@ class Alphafold2(nn.Module):
         structure_module_refinement_iters: int = 0,
         structure_module_refinement: str = "residue",
         outer_mean_reference_scale: bool = False,
+        disable_token_embed: bool = False,
         recycling_distance_buckets: int = 32,
         linear_attn_kind: str = "favor",
         performer_nb_features: int = 256,
@@ -101,8 +120,6 @@ class Alphafold2(nn.Module):
     ):
         super().__init__()
         device = resolve_device(device)
-        if predict_angles:
-            not_ported("predict_angles", predict_angles, _ITEM6)
         if structure_module_type != "ipa":
             not_ported("structure_module_type", structure_module_type,
                        _ITEM11)
@@ -112,10 +129,14 @@ class Alphafold2(nn.Module):
         self.dim = dim
         self.max_rel_dist = max_rel_dist
         self.predict_coords = predict_coords
+        self.predict_angles = predict_angles
+        self.symmetrize_omega = symmetrize_omega
+        self.templates_embed_layers = templates_embed_layers
         self.recycling_distance_buckets = recycling_distance_buckets
         self.dtype = dtype
 
-        self.token_emb = nn.Embedding(num_tokens + 1, dim)
+        self.token_emb = None if disable_token_embed else \
+            nn.Embedding(num_tokens + 1, dim)
         self.to_pairwise_repr = Dense(dim, dim * 2, dtype=dtype)
         self.pos_emb = nn.Embedding(max_rel_dist * 2 + 1, dim)
         self.recycling_msa_norm = LayerNorm(dim)
@@ -139,13 +160,87 @@ class Alphafold2(nn.Module):
         # the last embedding row is the mask token
         self.mlm = MLM(dim, num_tokens, mask_id=num_tokens)
 
+        # pretrained embeddings: the embedds-only MSA, and one projector
+        # per known LM width (and num_embedds) other than dim
+        self.embedd_project = Dense(num_embedds, dim, dtype=dtype)
+        self.embed_widths = tuple(sorted(
+            {constants.MSA_EMBED_DIM, constants.PROTTRAN_EMBED_DIM,
+             constants.ESM_EMBED_DIM, num_embedds} - {dim}))
+        for w in self.embed_widths:
+            setattr(self, f"seq_embed_project_{w}", Dense(w, dim, dtype=dtype))
+            setattr(self, f"msa_embed_project_{w}", Dense(w, dim, dtype=dtype))
+        # templates: one weight-shared pair block applied
+        # templates_embed_layers times (no dropout, no outer mean), then
+        # attention from each pair cell over its templates
+        self.to_template_embed = Dense(templates_dim, dim, dtype=dtype)
+        self.template_pairwise_embedder = PairwiseAttentionBlock(
+            dim, heads, dim_head, with_outer_mean=False, dtype=dtype)
+        self.template_pointwise_attn = Attention(
+            dim, heads=heads, dim_head=dim_head, dropout=attn_dropout,
+            dtype=dtype)
+        self.template_angle_mlp_in = Dense(templates_angles_feats_dim, dim,
+                                           dtype=dtype)
+        self.template_angle_mlp_out = Dense(dim, dim, dtype=dtype)
+        # the extra-MSA stack: global-query attention on its ingoing
+        # triangle attention, scanned (remat under gradients) as in JAX
+        self.extra_msa_evoformer = Evoformer(
+            dim, extra_msa_evoformer_layers, heads=heads, dim_head=dim_head,
+            attn_dropout=attn_dropout, ff_dropout=ff_dropout,
+            global_column_attn=True,
+            outer_mean_reference_scale=outer_mean_reference_scale,
+            dtype=dtype)
+        if predict_angles:
+            self.to_prob_theta = Dense(dim, constants.THETA_BUCKETS)
+            self.to_prob_phi = Dense(dim, constants.PHI_BUCKETS)
+            self.to_prob_omega = Dense(dim, constants.OMEGA_BUCKETS)
+
         init_weights(self, generator if generator is not None
                      else torch.Generator().manual_seed(0))
         self.to(device)
 
     @property
     def device(self) -> torch.device:
-        return self.token_emb.weight.device
+        return self.pos_emb.weight.device
+
+    def _embed_tokens(self, tokens):
+        if self.token_emb is None:
+            return 0.0
+        return self.token_emb(tokens).to(self.dtype)
+
+    def _project_embed(self, e, prefix: str):
+        """A pretrained embedding in the trunk's dtype, through the
+        projector of its width unless it already has `dim`."""
+        e = e.to(self.dtype)
+        width = e.shape[-1]
+        if width == self.dim:
+            return e
+        if width not in self.embed_widths:
+            raise ValueError(f"no {prefix} for embeddings of width {width}; "
+                             f"the model projects {self.embed_widths}")
+        return getattr(self, f"{prefix}_{width}")(e)
+
+    def _pooled_templates(self, x, x_mask, feats, t_mask, train, generator):
+        """The template pair stack over (b*t, n, n, dim) under the crossed
+        template mask, then each pair cell's attention over its t
+        templates; cells with no valid template add nothing."""
+        b, t, n = feats.shape[:3]
+        t_mask = t_mask.bool()
+        crossed = t_mask[:, :, :, None] & t_mask[:, :, None, :]
+        emb = self.to_template_embed(feats).reshape(b * t, n, n, self.dim)
+        flat_mask = crossed.reshape(b * t, n, n)
+        for _ in range(self.templates_embed_layers):
+            emb = self.template_pairwise_embedder(
+                emb, mask=flat_mask, train=train, generator=generator)
+        emb = emb.reshape(b, t, n, n, self.dim)
+        cells = b * n * n
+        t_point = emb.permute(0, 2, 3, 1, 4).reshape(cells, t, self.dim)
+        t_mask_point = crossed.permute(0, 2, 3, 1).reshape(cells, t)
+        pooled = self.template_pointwise_attn(
+            x.reshape(cells, 1, self.dim), mask=x_mask.reshape(cells, 1),
+            context=t_point, context_mask=t_mask_point, train=train,
+            generator=generator)
+        has_template = (t_mask_point.sum(-1) > 0)[:, None, None]
+        return (pooled * has_template).reshape(b, n, n, self.dim)
 
     def forward(
         self,
@@ -153,51 +248,79 @@ class Alphafold2(nn.Module):
         msa=None,                  # (b, m, n) int tokens
         mask=None,                 # (b, n) bool
         msa_mask=None,             # (b, m, n) bool
+        extra_msa=None,            # (b, e, n) int tokens
+        extra_msa_mask=None,       # (b, e, n) bool
+        seq_index=None,            # (n,) int residue indices
+        seq_embed=None,            # (b, n, width)
+        msa_embed=None,            # (b, m, n, width)
+        templates_feats=None,      # (b, t, n, n, templates_dim)
+        templates_mask=None,       # (b, t, n) bool
+        templates_angles=None,     # (b, t, n, templates_angles_feats_dim)
+        embedds=None,              # (b, m, n, num_embedds)
         recyclables: Optional[Recyclables] = None,
+        return_trunk: bool = False,
+        return_confidence: bool = False,
         return_recyclables: bool = False,
         return_aux_logits: bool = False,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
-        **unported,
     ):
-        for name, value in unported.items():
-            if name not in _UNPORTED_INPUTS:
-                raise TypeError(f"Alphafold2.forward got an unexpected "
-                                f"argument {name!r}")
-            if value is not None:
-                not_ported(name, "<given>", _ITEM6 + ": templates, extra "
-                           "MSA and pretrained embeddings")
+        if self.token_emb is None:
+            if seq_embed is None:
+                raise ValueError("sequence embedding must be supplied if "
+                                 "token embedding disabled")
+            if msa is not None and msa_embed is None:
+                raise ValueError("msa embedding must be supplied if token "
+                                 "embedding disabled")
+        if (templates_feats is not None or templates_angles is not None) \
+                and templates_mask is None:
+            raise ValueError("template features need templates_mask")
 
         b, n = seq.shape[:2]
         device = seq.device
         if mask is None:
             mask = torch.ones(b, n, dtype=torch.bool, device=device)
         mask = mask.bool()
-        # without an MSA the sequence itself is the one MSA row
-        if msa is None:
+        # without an MSA (or embeddings) the sequence itself is the one
+        # MSA row
+        if msa is None and embedds is None:
             msa = seq[:, None, :]
             msa_mask = mask[:, None, :]
-        if msa.shape[-1] != n:
+        if msa is not None and msa.shape[-1] != n:
             raise ValueError("sequence length of MSA and primary sequence "
                              "must match")
-        msa_mask = torch.ones_like(msa, dtype=torch.bool) \
-            if msa_mask is None else msa_mask.bool()
-
-        # MLM noising of the MSA in training
-        original_msa = msa
-        replaced_msa_mask = None
-        if train:
-            msa, replaced_msa_mask = self.mlm.noise(msa, msa_mask, generator)
 
         dt = self.dtype
-        x_single = self.token_emb(seq).to(dt)
-        m = self.token_emb(msa).to(dt) + x_single[:, None]
+        x_single = self._embed_tokens(seq)
+        if seq_embed is not None:
+            x_single = x_single + self._project_embed(seq_embed,
+                                                      "seq_embed_project")
+
+        original_msa = msa
+        replaced_msa_mask = None
+        if msa is not None:
+            msa_mask = torch.ones_like(msa, dtype=torch.bool) \
+                if msa_mask is None else msa_mask.bool()
+            # MLM noising of the MSA in training
+            if train:
+                msa, replaced_msa_mask = self.mlm.noise(msa, msa_mask,
+                                                        generator)
+            m = self._embed_tokens(msa)
+            if msa_embed is not None:
+                m = m + self._project_embed(msa_embed, "msa_embed_project")
+            m = m + x_single[:, None]
+        else:
+            m = self.embedd_project(embedds.to(dt))
+            msa_mask = torch.ones(embedds.shape[:-1], dtype=torch.bool,
+                                  device=device) \
+                if msa_mask is None else msa_mask.bool()
 
         # pair representation by outer sum, plus relative positions
         x_left, x_right = self.to_pairwise_repr(x_single).chunk(2, dim=-1)
         x = x_left[:, :, None, :] + x_right[:, None, :, :]
         x_mask = mask[:, :, None] & mask[:, None, :]
-        seq_index = torch.arange(n, device=device)
+        if seq_index is None:
+            seq_index = torch.arange(n, device=device)
         rel = seq_index[:, None] - seq_index[None, :]
         rel = rel.clamp(-self.max_rel_dist, self.max_rel_dist) + \
             self.max_rel_dist
@@ -221,22 +344,51 @@ class Alphafold2(nn.Module):
                                          right=False)
             x = x + self.recycling_distance_embed(buckets).to(dt)
 
+        if templates_feats is not None:
+            x = x + self._pooled_templates(x, x_mask, templates_feats,
+                                           templates_mask, train, generator)
+
+        # template angle features become extra MSA rows
+        if templates_angles is not None:
+            feats = self.template_angle_mlp_out(F.gelu(
+                self.template_angle_mlp_in(templates_angles),
+                approximate="tanh"))
+            m = torch.cat([m, feats], dim=1)
+            msa_mask = torch.cat([msa_mask, templates_mask.bool()], dim=1)
+
+        # the extra-MSA stack updates the pair (no x_single on its rows)
+        if extra_msa is not None:
+            if self.token_emb is None:
+                raise ValueError("extra_msa needs the token embedding")
+            extra_mask = torch.ones_like(extra_msa, dtype=torch.bool) \
+                if extra_msa_mask is None else extra_msa_mask.bool()
+            x, _ = self.extra_msa_evoformer(
+                x, self._embed_tokens(extra_msa), mask=x_mask,
+                msa_mask=extra_mask, train=train, generator=generator)
+
         x, m = self.net(x, m, mask=x_mask, msa_mask=msa_mask, train=train,
                         generator=generator)
 
-        # symmetrised pair -> distogram head (fp32)
+        # heads (fp32): theta and phi on the pair as it is, the distogram
+        # (and omega under symmetrize_omega) on the symmetrised pair
         x_f32 = x.float()
+        heads = {}
+        if self.predict_angles:
+            heads["theta"] = self.to_prob_theta(x_f32)
+            heads["phi"] = self.to_prob_phi(x_f32)
         trunk_embeds = (x_f32 + x_f32.transpose(1, 2)) * 0.5
-        distance = self.to_distogram_logits(
+        heads["distance"] = self.to_distogram_logits(
             self.distogram_norm(trunk_embeds))
+        if train and original_msa is not None:
+            heads["msa_mlm_loss"] = self.mlm(
+                m[:, :original_msa.shape[1]], original_msa,
+                replaced_msa_mask)
+        if self.predict_angles:
+            heads["omega"] = self.to_prob_omega(
+                trunk_embeds if self.symmetrize_omega else x_f32)
 
-        msa_mlm_loss = None
-        if train:
-            msa_mlm_loss = self.mlm(m[:, :original_msa.shape[1]],
-                                    original_msa, replaced_msa_mask)
-
-        if not self.predict_coords:
-            return ReturnValues(distance=distance, msa_mlm_loss=msa_mlm_loss)
+        if not self.predict_coords or return_trunk:
+            return ReturnValues(**heads)
 
         # single / pair projections and the structure module (fp32)
         single_msa_repr_row = m[:, 0]
@@ -247,11 +399,14 @@ class Alphafold2(nn.Module):
         confidence = self.lddt_linear(single_out)
 
         ret = ReturnValues(
-            distance=distance, confidence=confidence,
-            msa_mlm_loss=msa_mlm_loss,
+            **heads, confidence=confidence,
             recyclables=Recyclables(
                 coords.detach(), single_msa_repr_row.float().detach(),
                 pairwise_repr.detach()) if return_recyclables else None)
-        if return_aux_logits or return_recyclables:
+        if return_aux_logits:
+            return coords, ret
+        if return_confidence:
+            return coords, confidence
+        if return_recyclables:
             return coords, ret
         return coords

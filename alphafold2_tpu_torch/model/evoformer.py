@@ -34,13 +34,20 @@ from alphafold2_tpu_torch.model.primitives import (
 
 
 class PairwiseAttentionBlock(nn.Module):
+    """Pair track: outer-mean ingest of the MSA, triangle multiplication
+    out and in, triangle attention out and in, all residual.
+    `with_outer_mean=False` builds the block without its `OuterMean`, as
+    the template embedder is (flax creates `outer_mean` only when the
+    block is called with an MSA, which the template embedder never is)."""
+
     def __init__(self, dim: int, heads: int, dim_head: int = 64,
                  dropout: float = 0.0, global_column_attn: bool = False,
                  outer_mean_reference_scale: bool = False,
-                 dtype=torch.float32):
+                 with_outer_mean: bool = True, dtype=torch.float32):
         super().__init__()
         self.outer_mean = OuterMean(
-            dim, reference_scale=outer_mean_reference_scale, dtype=dtype)
+            dim, reference_scale=outer_mean_reference_scale, dtype=dtype) \
+            if with_outer_mean else None
         self.triangle_multiply_outgoing = TriangleMultiplicativeModule(
             dim, mix="outgoing", dtype=dtype)
         self.triangle_multiply_ingoing = TriangleMultiplicativeModule(
@@ -57,6 +64,9 @@ class PairwiseAttentionBlock(nn.Module):
                 train: bool = False,
                 generator: Optional[torch.Generator] = None):
         if msa_repr is not None:
+            if self.outer_mean is None:
+                raise ValueError("this pair block was built without an "
+                                 "outer mean and takes no MSA")
             x = x + self.outer_mean(msa_repr, mask=msa_mask)
         x = self.triangle_multiply_outgoing(x, mask=mask) + x
         x = self.triangle_multiply_ingoing(x, mask=mask) + x

@@ -6,9 +6,10 @@ computes in bf16 with its fp32 parameters cast down at each call, as the
 JAX package's `Dense(dtype=bf16, param_dtype=f32)` does. Attribute names
 follow the flax names (`weights.load_jax_params` maps one onto the other).
 
-Every non-global self-attention goes through `ops.attention
-.fused_attention`: the CUDA kernel for tensors on the card, its plain
-version for tensors on the CPU. The global-query (`tie_dim`) branch stays
+Every non-global attention, self- or cross- (the template pointwise
+attention), goes through `ops.attention.fused_attention`: the CUDA
+kernel for tensors on the card, its plain version for tensors on the
+CPU. The global-query (`tie_dim`) branch stays
 plain PyTorch, as it stays plain XLA in the JAX package. Under an active
 `ops.block_sparse.kernel_context` (the serving executor's long buckets),
 self-attention whose attended axis has the spec's length goes through
@@ -180,13 +181,15 @@ class Attention(nn.Module):
             if gating else None
         self.to_out = Dense(inner, dim, dtype=dtype, init="zeros")
 
-    def project_qkv(self, x):
-        """x: (..., n, d) -> q, k, v (b, h, ..., n, dh), q pre-scaled.
-        k is the first half of to_kv's output, v the second; the inner
-        axis splits head-major."""
+    def project_qkv(self, x, kv_input=None):
+        """x: (..., n, d) -> q, k, v (b, h, ..., n, dh), q pre-scaled;
+        k and v come from `kv_input` (x when None). k is the first half
+        of to_kv's output, v the second; the inner axis splits
+        head-major."""
         h, dh = self.heads, self.dim_head
         q = self.to_q(x)
-        k, v = self.to_kv(x).chunk(2, dim=-1)
+        k, v = self.to_kv(x if kv_input is None else kv_input).chunk(
+            2, dim=-1)
 
         def split_heads(t):
             return t.reshape(*t.shape[:-1], h, dh).movedim(-2, 1)
@@ -205,23 +208,36 @@ class Attention(nn.Module):
             out_merged = out_merged * torch.sigmoid(self.gating(x))
         return self.to_out(out_merged)
 
-    def forward(self, x, mask=None, attn_bias=None,
-                tie_dim: Optional[int] = None, attn_bias_repeat: int = 1,
-                train: bool = False,
+    def forward(self, x, mask=None, attn_bias=None, context=None,
+                context_mask=None, tie_dim: Optional[int] = None,
+                attn_bias_repeat: int = 1, train: bool = False,
                 generator: Optional[torch.Generator] = None):
-        """Self-attention. x (b, n, d); mask (b, n) bool; attn_bias
-        (b // attn_bias_repeat, heads, n, n). Cross-attention (the JAX
-        module's `context`) has no caller on the ported slice. With
-        `train=True` and dropout > 0 the softmax weights are dropped out
-        on the plain path."""
+        """x (b, n, d); mask (b, n) bool; attn_bias (b // attn_bias_repeat,
+        heads, n, m). With `context` (b, m, d) the keys and values come
+        from it (cross-attention, the template pointwise attention) and
+        `context_mask` (b, m) masks them; as in the JAX module the key
+        mask exists only when `mask` does (all ones when `context_mask`
+        is None), and a block-sparse spec never applies to a call with a
+        context. With `train=True` and dropout > 0 the softmax weights
+        are dropped out on the plain path."""
         h, dh = self.heads, self.dim_head
-        q, k, v = self.project_qkv(x)                 # (b, h, n, dh)
+        has_context = context is not None
+        q, k, v = self.project_qkv(x, kv_input=context)   # (b, h, n, dh)
         drop = train and self.dropout > 0.0
+        cmask = None
+        if mask is not None:
+            mask = mask.bool()
+            cmask = mask
+            if has_context:
+                cmask = torch.ones(k.shape[0], k.shape[-2], dtype=torch.bool,
+                                   device=k.device) \
+                    if context_mask is None else context_mask.bool()
 
         if tie_dim is None:
             b_all, n_q, n_k = q.shape[0], q.shape[-2], k.shape[-2]
             spec = active_kernel_spec()
-            if spec is not None and (n_q != n_k or not spec.covers(n_q)):
+            if spec is not None and (has_context or n_q != n_k
+                                     or not spec.covers(n_q)):
                 spec = None
             if spec is not None and spec.backend == "auto" and not drop:
                 return self._block_sparse(q, k, v, x, mask, attn_bias,
@@ -244,8 +260,8 @@ class Attention(nn.Module):
                     f"attn_dropout=0.0 or run with train=False to keep the "
                     f"kernel.", stacklevel=2)
                 return self.finish(self._plain_dropout(
-                    q, k, v, mask, attn_bias, attn_bias_repeat, generator),
-                    x)
+                    q, k, v, mask, cmask, attn_bias, attn_bias_repeat,
+                    generator), x)
             bias = None
             if attn_bias is not None:
                 # the kernel replays the (b, heads) bias over the fold by
@@ -258,8 +274,8 @@ class Attention(nn.Module):
                 k.reshape(b_all * h, n_k, dh).contiguous(),
                 v.reshape(b_all * h, n_k, dh).contiguous(),
                 bias=bias,
-                q_mask=None if mask is None else mask.bool().contiguous(),
-                k_mask=None if mask is None else mask.bool().contiguous(),
+                q_mask=None if mask is None else mask.contiguous(),
+                k_mask=None if cmask is None else cmask.contiguous(),
                 heads=h, bias_repeat=attn_bias_repeat)
             return self.finish(out.reshape(b_all, h, n_q, dh), x)
 
@@ -276,7 +292,7 @@ class Attention(nn.Module):
                                                         dim=0)
             dots = dots + attn_bias.to(dots.dtype)
         if mask is not None:
-            pair_mask = mask[:, None, :, None] & mask[:, None, None, :]
+            pair_mask = mask[:, None, :, None] & cmask[:, None, None, :]
             dots = dots.masked_fill(~pair_mask, MASK_VALUE)
         attn = torch.softmax(dots, dim=-1)
         if drop:
@@ -284,8 +300,8 @@ class Attention(nn.Module):
         out = torch.einsum("bhij,bhjd->bhid", attn, v)
         return self.finish(out, x)
 
-    def _plain_dropout(self, q, k, v, mask, attn_bias, attn_bias_repeat,
-                       generator):
+    def _plain_dropout(self, q, k, v, mask, cmask, attn_bias,
+                       attn_bias_repeat, generator):
         """The plain attention with dropout on the softmax weights: the
         fused contract (fp32 logits and softmax, masked logits replaced by
         -1e9 after the bias add) plus dropout before the product with v."""
@@ -296,7 +312,7 @@ class Attention(nn.Module):
                                                         dim=0)
             dots = dots + attn_bias.float()
         if mask is not None:
-            pair_mask = mask[:, None, :, None] & mask[:, None, None, :]
+            pair_mask = mask[:, None, :, None] & cmask[:, None, None, :]
             dots = dots.masked_fill(~pair_mask, MASK_VALUE)
         attn = dropout(torch.softmax(dots, dim=-1), self.dropout, generator)
         return torch.einsum("bhij,bhjd->bhid", attn.to(v.dtype), v)

@@ -1,8 +1,8 @@
 """Training step and loop (counterpart of `alphafold2_tpu/train/loop.py`).
 
 - loss = distogram CE [+ coords Kabsch-RMSD + dispersion term + MLM +
-  confidence regression], selected by what the batch provides and the
-  model's config;
+  confidence regression + trRosetta angle CEs], selected by what the
+  batch provides and the model's config;
 - gradient accumulation lives in the optimizer (`state.adam`'s MultiSteps
   semantics), so every step is one forward and one backward;
 - the recycled step draws r ~ U{0..max_recycles} from the state's
@@ -72,6 +72,13 @@ def compute_loss(model, batch, generator: Optional[torch.Generator] = None,
         metrics["distogram_loss"] = d_loss
         loss = loss + d_loss
 
+    if model.predict_angles and "theta" in batch:
+        a_loss = losses.angle_loss(ret.theta, ret.phi, ret.omega,
+                                   batch["theta"], batch["phi"],
+                                   batch["omega"])
+        metrics["angle_loss"] = a_loss
+        loss = loss + a_loss
+
     if ret.msa_mlm_loss is not None:
         metrics["mlm_loss"] = ret.msa_mlm_loss
         loss = loss + ret.msa_mlm_loss
@@ -82,11 +89,10 @@ def compute_loss(model, batch, generator: Optional[torch.Generator] = None,
 
 def _gradients(loss, params):
     """d loss / d params; a parameter the loss does not reach (the
-    recycling embedder of a step without recycles) gets zeros, as
-    `jax.grad` gives it."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
-            for p, g in zip(params, grads)]
+    recycling embedder of a step without recycles, the templates and the
+    extra-MSA stack of a batch without them) gets None, which the
+    optimizer takes as the zero gradient `jax.grad` gives it."""
+    return list(torch.autograd.grad(loss, params, allow_unused=True))
 
 
 def _apply(state: TrainState, loss, metrics):

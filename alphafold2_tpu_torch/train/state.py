@@ -13,6 +13,15 @@
   of k micro-step gradients (`acc + (g - acc) / (n + 1)`), applied on the
   k-th step, and no update in between.
 
+A None gradient is a zero one (a parameter the loss does not reach, to
+which `jax.grad` gives zeros). A parameter that has had no gradient
+since the optimizer was made (or loaded with zero moments) keeps exact
+zeros in its moments and accumulator, and a zero gradient leaves them
+and the parameter bit-equal, so the chain leaves such parameters out
+(the full model's extra-MSA stack and templates in a train step that
+feeds neither); the global norm still counts them, as zeros in their
+places.
+
 The three schedules of `alphafold2_tpu/train/state.py:33-71`: constant;
 warmup alone (a linear ramp from 0, then the peak held); warmup then
 cosine decay to `end_lr_ratio * learning_rate`.
@@ -85,12 +94,22 @@ def learning_rate_schedule(learning_rate: float, warmup_steps: int = 0,
     return lambda count: learning_rate
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor],
-                        max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        positions: Optional[Sequence[int]] = None,
+                        size: Optional[int] = None) -> List[torch.Tensor]:
     """`optax.clip_by_global_norm`: every gradient scaled by
-    max_norm / max(global norm, max_norm), without a host sync."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
-        list(grads))))
+    max_norm / max(global norm, max_norm), without a host sync. With
+    `positions`, `grads` are the entries at those places of a list of
+    `size` gradients whose other entries are zero: the norm is taken over
+    the whole list's per-tensor norms, zeros in their places, so it has
+    the bits of the norm over the full list."""
+    norms = list(torch._foreach_norm(list(grads)))
+    if positions is not None and len(norms) < size:
+        full = [norms[0].new_zeros(())] * size
+        for at, norm in zip(positions, norms):
+            full[at] = norm
+        norms = full
+    norm = torch.linalg.vector_norm(torch.stack(norms))
     return torch._foreach_mul(list(grads),
                               max_norm / torch.clamp(norm, min=max_norm))
 
@@ -99,7 +118,9 @@ class Adam:
     """The optax chain over a list of fp32 parameters. `update(grads)`
     accumulates or applies; state lives in `mu`, `nu` (Adam moments),
     `count` (updates applied), `mini_step` and `acc` (the MultiSteps
-    accumulator, None when grad_accum_every is 1)."""
+    accumulator, None when grad_accum_every is 1); `reached` marks the
+    parameters that have had a gradient (the others are left out of the
+    chain, bit-equal)."""
 
     def __init__(self, params: Sequence[torch.Tensor], schedule: Schedule,
                  grad_accum_every: int = 1,
@@ -118,39 +139,58 @@ class Adam:
         self.count = 0
         self.mini_step = 0
         self.acc = zeros() if grad_accum_every > 1 else None
+        self.reached = [False] * len(self.params)
 
     def tensors(self) -> List[torch.Tensor]:
         """Every state tensor (moments and accumulator)."""
         return self.mu + self.nu + (self.acc or [])
 
     @torch.no_grad()
-    def update(self, grads: Sequence[torch.Tensor]) -> bool:
-        """One micro-step; True when the parameters were updated."""
+    def update(self, grads: Sequence[Optional[torch.Tensor]]) -> bool:
+        """One micro-step over one gradient (or None, a zero gradient)
+        per parameter; True when the parameters were updated."""
         grads = list(grads)
+        if len(grads) != len(self.params):
+            raise ValueError(f"{len(grads)} gradients for "
+                             f"{len(self.params)} parameters")
+        for at, grad in enumerate(grads):
+            if grad is not None:
+                self.reached[at] = True
+        live = [at for at, reached in enumerate(self.reached) if reached]
+        grads = [torch.zeros_like(self.params[at]) if grads[at] is None
+                 else grads[at] for at in live]
+        params, mu, nu = ([xs[at] for at in live]
+                          for xs in (self.params, self.mu, self.nu))
         if self.acc is not None:
-            diff = torch._foreach_sub(grads, self.acc)
-            torch._foreach_div_(diff, float(self.mini_step + 1))
-            torch._foreach_add_(self.acc, diff)
+            acc = [self.acc[at] for at in live]
+            if live:
+                diff = torch._foreach_sub(grads, acc)
+                torch._foreach_div_(diff, float(self.mini_step + 1))
+                torch._foreach_add_(acc, diff)
             self.mini_step = (self.mini_step + 1) % self.grad_accum_every
             if self.mini_step:
                 return False
-            grads = [a.clone() for a in self.acc]
-            for a in self.acc:
+            grads = [a.clone() for a in acc]
+            for a in acc:
                 a.zero_()
-        if self.max_grad_norm is not None:
-            grads = clip_by_global_norm(grads, self.max_grad_norm)
+        if self.max_grad_norm is not None and live:
+            grads = clip_by_global_norm(grads, self.max_grad_norm,
+                                        positions=live,
+                                        size=len(self.params))
         lr = self.schedule(self.count)
         self.count += 1
-        torch._foreach_mul_(self.mu, self.b1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
-        step = torch._foreach_div(self.mu, 1.0 - self.b1 ** self.count)
-        denom = torch._foreach_div(self.nu, 1.0 - self.b2 ** self.count)
+        if not live:
+            return True
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
+        step = torch._foreach_div(mu, 1.0 - self.b1 ** self.count)
+        denom = torch._foreach_div(nu, 1.0 - self.b2 ** self.count)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(step, denom)
-        torch._foreach_add_(self.params, step, alpha=-lr)
+        torch._foreach_add_(params, step, alpha=-lr)
         return True
 
     def state_dict(self) -> dict:
@@ -168,6 +208,11 @@ class Adam:
                                  f"this optimizer's accumulation")
             for dst, src in zip(mine or [], theirs or []):
                 dst.copy_(src)
+        # a parameter with any nonzero state has had a gradient
+        flags = [torch.stack([t.ne(0).any() for t in states]).any()
+                 for states in zip(*(xs for xs in (self.mu, self.nu,
+                                                   self.acc) if xs))]
+        self.reached = torch.stack(flags).tolist() if flags else []
 
 
 @dataclass
@@ -238,7 +283,9 @@ class TrainState:
     def accumulator(self) -> Optional[List[torch.Tensor]]:
         return self.optimizer.acc
 
-    def apply_gradients(self, grads: Sequence[torch.Tensor]) -> "TrainState":
+    def apply_gradients(self, grads: Sequence[Optional[torch.Tensor]]
+                        ) -> "TrainState":
+        """One optimizer micro-step; a None gradient is a zero one."""
         self.optimizer.update(grads)
         self.step += 1
         return self

@@ -9,15 +9,15 @@ JAX. Leaf rules:
 - `Embed.embedding` -> Embedding `weight`;
 - the LayerNorm wrapper nests a flax LayerNorm: `<name>/LayerNorm_0/
   {scale, bias}` -> `<name>.{weight, bias}`;
-- the scanned trunk `net/layers/block/...` carries a leading depth axis,
-  unstacked into `net.layers.<i>....`; an unrolled trunk's
-  `net/layers_<i>/...` maps to the same names;
+- a scanned stack (the trunk `net/layers/block/...`, the extra-MSA
+  stack `extra_msa_evoformer/layers/block/...`) carries a leading depth
+  axis, unstacked into `<stack>.layers.<i>....`; an unrolled stack's
+  `<stack>/layers_<i>/...` maps to the same names;
 - flax's auto-named submodules map to the port's attribute names
   (`_RENAMES`); IPA's `point_weights` keeps its name.
 
-Subtrees the port does not run are skipped by an explicit list. Any
-other JAX leaf without a port parameter raises, and so does any port
-parameter left unset.
+Every leaf of a JAX `Alphafold2.init` tree has a port parameter: a JAX
+leaf without one raises, and so does any port parameter left unset.
 """
 
 from __future__ import annotations
@@ -26,10 +26,6 @@ from typing import Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
-
-# top-level subtrees of the JAX params that the port's slice does not run
-SKIPPED = ("to_template_embed", "extra_msa_evoformer", "embedd_project")
-SKIPPED_PREFIXES = ("template_", "seq_embed_project_", "msa_embed_project_")
 
 # flax auto-generated module names -> the port's attribute names
 _RENAMES = {"LayerNorm_0": "norm", "LayerNorm_1": "out_norm",
@@ -44,10 +40,6 @@ def _flatten(tree: Mapping, prefix=()) -> Iterator[Tuple[tuple, np.ndarray]]:
             yield from _flatten(value, prefix + (key,))
         else:
             yield prefix + (key,), np.asarray(value)
-
-
-def _skipped(top: str) -> bool:
-    return top in SKIPPED or top.startswith(SKIPPED_PREFIXES)
 
 
 def _translate(parts: tuple, value: np.ndarray):
@@ -66,7 +58,7 @@ def _translate(parts: tuple, value: np.ndarray):
 
     for at, part in enumerate(parts):
         if part == "layers" and parts[at + 1:at + 2] == ["block"]:
-            # scanned trunk: one stacked leaf per parameter
+            # scanned stack: one stacked leaf per parameter
             return [(name(parts[:at] + ["layers", str(i)] + parts[at + 2:]),
                      value[i]) for i in range(value.shape[0])]
         if part.startswith("layers_"):
@@ -84,8 +76,6 @@ def load_jax_params(model: torch.nn.Module, params: Mapping) -> None:
     assigned = set()
     stray = []
     for path, value in _flatten(params):
-        if _skipped(path[0]):
-            continue
         pairs = _translate(path, value)
         if not pairs:
             stray.append("/".join(path))

@@ -13,57 +13,74 @@ Phases, each of which fails the run (nonzero exit, no result line):
    report);
 3. check: each kernel against its plain PyTorch version on the card, at
    the shapes the fold path gives it, in fp32 and bf16 (K1 at the 256
-   bucket's three shapes and the 512 bucket's MSA column shape, plus a
-   small backward against autograd; K2 at the 512
-   bucket's MSA row and triangle shapes under the default policy's
-   pattern and a banded block-128 one, plus one call at the default
-   scale), then at the tensor-core tile's edge cases (ragged and odd
-   lengths, every head width, replayed bias, fully masked rows, every
-   bf16 layout of K1, every K2 block size, live keys all masked, other
-   scales);
+   bucket's three shapes, the 512 bucket's MSA column shape and the
+   full-feature fold's four: the template triangle attention (B=8192,
+   N=256, bias replayed over 256), the template pointwise attention
+   (B=524,288, Nq=1, Nk=4, cells with no valid template), the extra-MSA
+   row attention (B=8192, N=256, bias replayed over 1024) and column
+   attention (B=2048, N=1024; its plain version over chunks of B), plus
+   a small backward against autograd; K2 at the 512 bucket's MSA row and
+   triangle shapes under the default policy's pattern and a banded
+   block-128 one, plus one call at the default scale), then at the
+   tensor-core tile's edge cases (ragged and odd lengths, every head
+   width, replayed bias, fully masked rows, every bf16 layout of K1,
+   every K2 block size, live keys all masked, other scales);
 4. time: each kernel (CUDA events over a run of launches, and device
    time per launch from torch.profiler), its plain version and one
    PyTorch library call computing the same function (a yardstick the
    port never calls), beside the least time the card could take (bytes
-   or FLOPs bound); K1's bf16 layouts at the MSA column and triangle
-   shapes; K2 also beside K1 on the same shape with the pattern as an
-   additive bias (the dense cost), under the default pattern and a
-   banded block-128 one;
+   or FLOPs bound), at each shape of phase 3; K1's bf16 layouts at the
+   MSA column, triangle and pointwise shapes; K2 also beside K1 on the
+   same shape with the pattern as an additive bias (the dense cost),
+   under the default pattern and a banded block-128 one;
 5. parity: small fp32 models folded on the card (kernel path) and on
-   the CPU (plain path) from the same weights, dense and under a
-   block-sparse spec;
+   the CPU (plain path) from the same weights: dense on seq/MSA, dense
+   with every new input at once (templates, template angles, extra MSA,
+   seq_index, sequence and MSA embeddings), and under a block-sparse
+   spec; each with its K1 or K2 launch count;
 6. serve: the default ModelConfig (dim 256, depth 6, heads 8, dim_head
    64, bf16 trunk) with seeded random weights folds three requests of
    256, 200 and 131 residues padded to the 256 bucket, 5 MSA rows, 3
    recycles; each fold must launch every kernel of the path;
 7. profile: torch.profiler over one more fold, device time by kernel,
    and the card's busy share of an unprofiled fold's wall time;
-8. executor: the same model behind `serve.executor.FoldExecutor` with
+8. fold-full: the same model folds the same three lengths through
+   `predict.fold` with the full model's inputs: t=4 templates
+   (templates_dim 32, 55 angle features; one missing, one partial),
+   e=1024 extra-MSA rows (4 extra-MSA layers), 5 MSA rows, 3 recycles;
+   each fold must launch K1 45 times a pass (180 a fold), counted on
+   each path (template pair stack 8, pointwise 1, extra-MSA stack 12,
+   trunk 24 a pass), and give finite coords and distogram; wall and
+   peak memory per fold, then a profile of one fold (device time by
+   kernel, K1's share, busy share);
+9. executor: the same model behind `serve.executor.FoldExecutor` with
    the default buckets and the default kernel policy (the 512 bucket
    block-sparse, the others dense): warm-up, three folds of 512, 437
    and 300 residues in the 512 bucket (72 K2 + 24 K1 launches each), one
    of 200 residues in the 256 bucket (0 K2 + 96 K1), and a step-mode
    fold whose steps run under a spec re-planned from the first pass's
    distogram; then a profile of one 512-bucket fold;
-9. train-check: K1's autograd (the kernel forward, the backward's plain
+10. train-check: K1's autograd (the kernel forward, the backward's plain
    recompute) against the plain version's autograd at the train step's
    triangle, MSA row and MSA column shapes, fp32 and bf16 (gradients
    against fp32 math on the same values, error over the largest
    reference gradient); then a small fp32 train step on the card against
    the same step on the CPU (same weights, same MLM noise from one CPU
    generator): loss within 1e-4, every gradient within 1e-3;
-10. train: the contract configuration (`train_wall.py --config
+11. train: the contract configuration (`train_wall.py --config
    contract`: dim 256, depth 2, heads 8, dim_head 64, bf16, unrolled
    trunk, 256 residues, 5 MSA rows, distogram + MLM, adam 3e-4): 8 K1
    launches per step, 30 steps on one fixed batch with the mean loss of
    the last 5 below the first 5's, the step's wall time, TFLOP/s, MFU
    and peak memory, and a profile of one step (K1's forward and the
    backward's plain recompute on lines of their own);
-11. train-recycled: the default ModelConfig with `predict_coords` and the
+12. train-recycled: the default ModelConfig with `predict_coords` and the
    remat trunk under `make_recycled_train_step(max_recycles=3)`: one
    step with a finite loss and 48 + 24 r K1 launches (r its recycle
    count), then a checkpoint saved and restored on the card (bit-equal,
    and the next step draws the same r from the restored generator).
+
+Each phase prints its seconds.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -104,9 +121,20 @@ DENSE_LENGTH = 200
 MSA_ROWS = 5
 NUM_RECYCLES = 3
 SEED = 0
-# K1's fold-path shapes: the 256 bucket's three, and the 512 bucket's
-# MSA column attention (B=4096, N=5)
-K1_SHAPES = ("msa_row", "msa_col", "triangle", "msa_col_512")
+# the full-feature fold's inputs: AF2's template count and its training
+# extra-MSA depth (Jumper et al. 2021, supplementary 1.2.7 and Table 4)
+TEMPLATES = 4
+EXTRA_ROWS = 1024
+# K1's fold-path shapes: the 256 bucket's three, the 512 bucket's MSA
+# column attention (B=4096, N=5), and the four that the full-feature fold
+# adds: the template pair stack's triangle attention, the template
+# pointwise attention (one query over the t templates of each pair cell),
+# and the extra-MSA stack's row (pair-biased) and column (N=1024)
+# attentions
+FULL_K1_SHAPES = ("template_triangle", "pointwise", "extra_row",
+                  "extra_col")
+K1_SHAPES = ("msa_row", "msa_col", "triangle", "msa_col_512") + \
+    FULL_K1_SHAPES
 
 
 def log(*args):
@@ -166,45 +194,99 @@ def ptxas_summary(report):
 
 
 def attention_inputs(shape, dtype, device, seed):
-    """Inputs of one fold-path attention launch, with a padded tail of
-    masked residues (so some query rows are fully masked): the 256
-    bucket's three shapes, and `msa_col_512`, the one K1 launch of a
-    512-bucket fold (its other attentions run K2)."""
+    """Inputs of one fold-path attention launch (heads 8, D 64), with a
+    padded tail of masked residues (so some query rows are fully masked):
+    the 256 bucket's three shapes; `msa_col_512`, the one K1 launch of a
+    512-bucket fold (its other attentions run K2); and the full-feature
+    fold's four (t=4 templates, the last missing and the one before it
+    partial, as `synthetic_features` makes them; e=1024 extra rows, each
+    covering a random prefix of the real residues)."""
     heads, d, valid = 8, 64, 200
-    g = torch.Generator().manual_seed(seed)
+    g = torch.Generator(device=device).manual_seed(seed)
     bucket = BUCKET
     if shape == "msa_col_512":  # the 512 bucket's column attention
         shape, bucket, valid = "msa_col", SPARSE_BUCKET, 437
+    real = torch.arange(bucket, device=device) < valid
+    templates = real[None].repeat(TEMPLATES, 1)
+    templates[-2, (2 * valid) // 3:] = False
+    templates[-1] = False
+    crossed = templates[:, :, None] & templates[:, None, :]   # (t, n, n)
+    extra = torch.arange(bucket, device=device)[None] < torch.randint(
+        valid // 2, valid + 1, (EXTRA_ROWS, 1), generator=g, device=device)
 
     def randn(*s, scale=1.0):
-        return (torch.randn(*s, generator=g) * scale).to(device)
+        return torch.randn(*s, generator=g, device=device) * scale
 
+    nq = nk = bucket
+    bias_rows, bias_repeat = heads, 1
     if shape == "msa_row":      # 5 alignment rows attend over residues
-        fold, n, bias_on = MSA_ROWS, bucket, True
-        q_mask = torch.arange(n)[None].expand(fold, n) < valid
-        q_mask = q_mask.clone()
+        q_mask = real[None].repeat(MSA_ROWS, 1)
         q_mask[3] = False                        # one fully masked row
-        k_mask = q_mask
+        k_mask, bias_repeat = q_mask, MSA_ROWS
     elif shape == "msa_col":    # residues attend over 5 alignment rows
-        fold, n, bias_on = bucket, MSA_ROWS, False
-        k_mask = (torch.arange(fold) < valid)[:, None].expand(fold, n)
-        k_mask = k_mask.clone()
+        nq = nk = MSA_ROWS
+        k_mask = real[:, None].repeat(1, MSA_ROWS)
         k_mask[:valid, -1] = False               # a ragged last row
-        q_mask = k_mask
-    else:                       # triangle attention over the pair map
-        fold, n, bias_on = bucket, bucket, True
-        row = torch.arange(n) < valid
-        q_mask = row[:, None] & row[None, :]
-        k_mask = q_mask
-    b = fold * heads
-    q = randn(b, n, d, scale=0.5).to(dtype)
-    k = randn(b, n, d, scale=0.5).to(dtype)
-    v = randn(b, n, d).to(dtype)
-    bias = randn(heads, n, n) if bias_on else None
+        q_mask, bias_rows = k_mask, 0
+    elif shape == "triangle":   # triangle attention over the pair map
+        q_mask = real[:, None] & real[None, :]
+        k_mask, bias_repeat = q_mask, bucket
+    elif shape == "template_triangle":   # each template's pair map
+        q_mask = crossed.reshape(TEMPLATES * bucket, bucket)
+        k_mask, bias_rows, bias_repeat = q_mask, TEMPLATES * heads, bucket
+    elif shape == "pointwise":  # each pair cell over its t templates
+        nq, nk, bias_rows = 1, TEMPLATES, 0
+        q_mask = (real[:, None] & real[None, :]).reshape(-1, 1)
+        k_mask = crossed.permute(1, 2, 0).reshape(-1, TEMPLATES)
+    elif shape == "extra_row":  # 1024 extra rows over residues
+        q_mask = k_mask = extra
+        bias_repeat = EXTRA_ROWS
+    elif shape == "extra_col":  # residues over the 1024 extra rows
+        nq = nk = EXTRA_ROWS
+        q_mask = k_mask = extra.t()
+        bias_rows = 0
+    else:
+        raise ValueError(f"unknown attention shape {shape!r}")
+    b = q_mask.shape[0] * heads
+    q = randn(b, nq, d, scale=0.5).to(dtype)
+    k = randn(b, nk, d, scale=0.5).to(dtype)
+    v = randn(b, nk, d).to(dtype)
+    bias = randn(bias_rows, nq, nk) if bias_rows else None
     return dict(q=q, k=k, v=v, bias=bias,
-                q_mask=q_mask.to(device).contiguous(),
-                k_mask=k_mask.to(device).contiguous(),
-                heads=heads, bias_repeat=fold if bias_on else 1)
+                q_mask=q_mask.contiguous(), k_mask=k_mask.contiguous(),
+                heads=heads, bias_repeat=bias_repeat)
+
+
+# the most fp32 logits the plain version holds at once on the card
+PLAIN_LOGITS_BYTES = 2 ** 31
+
+
+def plain_attention(kw):
+    """The plain version of one launch's inputs, over chunks of B when its
+    fp32 logits would pass PLAIN_LOGITS_BYTES (the extra-MSA column
+    shape's are 8 GiB): each chunk holds whole bias-replay groups, so it
+    reads its own slice of the bias and the masks. One chunk when they
+    fit."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    q, k, v = kw["q"], kw["k"], kw["v"]
+    b, nq, _ = q.shape
+    heads, rep = kw["heads"], kw["bias_repeat"]
+    bias = kw["bias"]
+    group = heads * (rep if bias is not None else 1)
+    group_bytes = group * nq * k.shape[1] * 4
+    rows = max(1, PLAIN_LOGITS_BYTES // group_bytes) * group
+    if rows >= b:
+        return attn.attention_reference(**kw)
+    outs = []
+    for s in range(0, b, rows):
+        e = min(s + rows, b)
+        outs.append(attn.attention_reference(
+            q[s:e], k[s:e], v[s:e],
+            bias=None if bias is None else bias[s // rep:e // rep],
+            q_mask=kw["q_mask"][s // heads:e // heads],
+            k_mask=kw["k_mask"][s // heads:e // heads],
+            heads=heads, bias_repeat=rep))
+    return torch.cat(outs)
 
 
 def phase_check():
@@ -219,17 +301,19 @@ def phase_check():
             # the plain version on the same input values, in fp32: its
             # bf16 run rounds the logits to bf16 before the softmax,
             # which the kernel does not
-            ref = attn.attention_reference(**dict(kw, **{
+            ref = plain_attention(dict(kw, **{
                 key: kw[key].float() for key in ("q", "k", "v")}))
             err = float((out.float() - ref).abs().max())
             tol = TOLERANCE[dtype]
             log(f"check fused_attention {shape} {str(dtype)[6:]} "
-                f"B={kw['q'].shape[0]} N={kw['q'].shape[1]}: "
+                f"B={kw['q'].shape[0]} Nq={kw['q'].shape[1]} "
+                f"Nk={kw['k'].shape[1]}: "
                 f"max abs err {err:.3e} (tolerance {tol:.0e})")
             if not err <= tol or not torch.isfinite(out).all():
                 raise AssertionError(f"fused_attention {shape} {dtype}: "
                                      f"max abs err {err} > {tol}")
             worst[dtype] = max(worst.get(dtype, 0.0), err)
+            del out, ref, kw
 
     # backward: recompute through the plain version vs plain autograd
     g = torch.Generator().manual_seed(2)
@@ -379,66 +463,90 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def sdpa_mask(kw, dtype):
+    """The additive mask (B, Nq, Nk) in `dtype` that makes one SDPA call
+    compute what one K1 launch does: the bias replayed over the fold and
+    -1e9 at masked pairs."""
+    q, bias, heads = kw["q"], kw["bias"], kw["heads"]
+    b, nq, nk = q.shape[0], q.shape[1], kw["k"].shape[1]
+    valid = (kw["q_mask"][:, :, None] & kw["k_mask"][:, None, :]
+             ).repeat_interleave(heads, dim=0)
+    if bias is None:
+        return torch.zeros(b, nq, nk, device=q.device, dtype=dtype
+                           ).masked_fill_(~valid, -1e9)
+    add = bias.reshape(-1, heads, nq, nk).repeat_interleave(
+        kw["bias_repeat"], dim=0).reshape(b, nq, nk)
+    return add.masked_fill(~valid, -1e9).to(dtype)
+
+
+# iterations of the timed runs per shape; the layouts are timed at the
+# shapes where the shape rule chooses between them
+TIME_ITERS = {"msa_row": 50, "msa_col": 50, "triangle": 20,
+              "msa_col_512": 50, "template_triangle": 10, "pointwise": 20,
+              "extra_row": 10, "extra_col": 10}
+LAYOUT_SHAPES = ("msa_col", "triangle", "msa_col_512", "pointwise")
+
+
 def phase_time():
     """K1 at each fold-path shape in bf16: kernel (CUDA events over a run
     of launches, and device time per launch from torch.profiler), plain
-    version, SDPA yardstick and the bound; at the MSA column shapes and
-    the triangle shape also each bf16 layout of the kernel's dispatch by
-    profiler device time (where the tree has them), which is what the
-    shape rule is chosen from. The JSON record carries the triangle
-    shape, the 256-bucket fold's largest and most frequent launch, and
-    the other shapes under `<shape>_*`."""
+    version (over chunks of B where its logits pass 2 GiB), SDPA
+    yardstick and the bound; at the MSA column, triangle and pointwise
+    shapes also each bf16 layout of the kernel's dispatch by profiler
+    device time (where the tree has them), which is what the shape rule
+    is chosen from. The JSON record carries the triangle shape, the
+    256-bucket fold's largest and most frequent launch, and the other
+    shapes under `<shape>_*`."""
     import inspect
     from alphafold2_tpu_torch.ops import attention as attn
     dtype = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
     has_layouts = "layout" in inspect.signature(attn._launch).parameters
     results = {}
-    for shape, iters in (("msa_row", 50), ("msa_col", 50),
-                         ("triangle", 20), ("msa_col_512", 50)):
+    for shape in K1_SHAPES:
+        iters = TIME_ITERS[shape]
         kw = attention_inputs(shape, dtype, torch.device("cuda"), seed=3)
         q, k, v, bias = kw["q"], kw["k"], kw["v"], kw["bias"]
         heads, rep = kw["heads"], kw["bias_repeat"]
-        b, n, d = q.shape
+        b, nq, d = q.shape
+        nk = k.shape[1]
         ms = cuda_ms(lambda: attn.fused_attention(**kw), iters=iters)
         dev_ms = device_ms(lambda: attn.fused_attention(**kw), iters=iters)
-        plain_ms = cuda_ms(lambda: attn.attention_reference(**kw),
+        plain_ms = cuda_ms(lambda: plain_attention(kw),
                            iters=max(iters // 2, 5))
         # yardstick only: one library call on the equivalent additive mask
-        valid = (kw["q_mask"][:, :, None] & kw["k_mask"][:, None, :]
-                 ).repeat_interleave(heads, dim=0)
-        add_mask = torch.zeros(b, n, n, device=q.device)
-        if bias is not None:
-            add_mask += bias.reshape(-1, heads, n, n).repeat_interleave(
-                rep, dim=0).reshape(b, n, n)
-        add_mask = add_mask.masked_fill(~valid, -1e9).to(dtype)
-        library_ms = cuda_ms(
-            lambda: sdpa(q, k, v, attn_mask=add_mask, scale=1.0),
-            iters=max(iters // 2, 5))
-        del add_mask, valid
+        add_mask = sdpa_mask(kw, dtype)
+        try:
+            library_ms = cuda_ms(
+                lambda: sdpa(q, k, v, attn_mask=add_mask, scale=1.0),
+                iters=max(iters // 2, 5))
+        except RuntimeError as e:   # the library has no kernel for it
+            log(f"  sdpa refused {shape}: {str(e).splitlines()[0][:200]}")
+            library_ms = None
+        del add_mask
         layouts = {}
-        if has_layouts and shape != "msa_row":
+        if has_layouts and shape in LAYOUT_SHAPES:
             args = [kw[key] for key in ("q", "k", "v", "bias", "q_mask",
                                         "k_mask")] + [heads, rep]
             for layout in (1, 2):
                 layouts[layout] = device_ms(
                     lambda: attn._launch(*args, layout=layout), iters=iters)
 
-        nbytes = (4 * b * n * d * q.element_size()
+        nbytes = (2 * b * (nq + nk) * d * q.element_size()
                   + (0 if bias is None else bias.numel() * 4)
                   + kw["q_mask"].numel() + kw["k_mask"].numel())
-        flops = 4 * b * n * n * d
+        flops = 4 * b * nq * nk * d
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         flops_ms = flops / PEAK_FLOPS[dtype] * 1e3
         bound_ms = max(bytes_ms, flops_ms)
         bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
-        log(f"time fused_attention {shape} bf16 B={b} N={n} D={d}: "
-            f"kernel {ms:.4f} ms (events), {dev_ms:.4f} ms (profiler "
-            f"device time), plain {plain_ms:.4f} ms, sdpa "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-            f"{nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms, "
-            f"{flops / 1e9:.3f} GFLOP -> {flops_ms:.4f} ms), "
-            f"{100 * bound_ms / dev_ms:.1f} % of bound")
+        lib = "refused" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"time fused_attention {shape} bf16 B={b} Nq={nq} Nk={nk} "
+            f"D={d}: kernel {ms:.4f} ms (events), {dev_ms:.4f} ms "
+            f"(profiler device time), plain {plain_ms:.4f} ms, sdpa {lib}, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB -> "
+            f"{bytes_ms:.4f} ms, {flops / 1e9:.3f} GFLOP -> "
+            f"{flops_ms:.4f} ms), {100 * bound_ms / dev_ms:.1f} % of bound")
         if layouts:
             log(f"  layouts by profiler device time (ms): " + ", ".join(
                 f"{key} {val:.4f}" for key, val in layouts.items()))
@@ -447,6 +555,7 @@ def phase_time():
                               bound_by=bound_by)
         results[shape].update({f"layout{key}_ms": val
                                for key, val in layouts.items()})
+        del kw, q, k, v, bias
     per_fold = sum(results[s]["device_ms"] * c for s, c in
                    (("msa_row", 24), ("msa_col", 24), ("triangle", 48)))
     log(f"time fused_attention: {per_fold:.2f} ms of kernel device time "
@@ -454,10 +563,11 @@ def phase_time():
         f"{24 * results['msa_col_512']['device_ms']:.2f} ms per 512-bucket "
         f"fold (24 column launches)")
     record = dict(results["triangle"])
-    for shape in ("msa_row", "msa_col", "msa_col_512"):
-        record.update({f"{shape}_{key}": val
-                       for key, val in results[shape].items()
-                       if key != "bound_by"})
+    for shape in K1_SHAPES:
+        if shape != "triangle":
+            record.update({f"{shape}_{key}": val
+                           for key, val in results[shape].items()
+                           if key != "bound_by"})
     return record
 
 
@@ -648,11 +758,45 @@ def perturb(model, seed, scale=0.05):
             p.add_((torch.randn(p.shape, generator=g) * scale).to(p.device))
 
 
+def small_features(rng, n, valid):
+    """Every model input beyond seq/msa for the small parity fold: t=4
+    templates with their angles (one missing, one partial), 16 extra rows,
+    residue indices with a chain break, and pretrained sequence and MSA
+    embeddings of two LM widths."""
+    from alphafold2_tpu_torch.data.synthetic import synthetic_features
+    feats = synthetic_features(rng, seq_len=n, valid=valid,
+                               num_templates=TEMPLATES, extra_depth=16)
+    feats["seq_index"] = torch.cat([torch.arange(n // 2),
+                                    torch.arange(n // 2) + n])
+    feats["seq_embed"] = torch.as_tensor(
+        rng.standard_normal((1, n, 768), dtype=np.float32))
+    feats["msa_embed"] = torch.as_tensor(
+        rng.standard_normal((1, 3, n, 1024), dtype=np.float32))
+    return feats
+
+
+def k1_per_pass(model, full: bool) -> dict:
+    """K1 launches of one pass, by path: 4 per trunk layer; with the
+    features also 2 per template pair block application, 1 for the
+    pointwise attention and 3 per extra-MSA layer (its ingoing triangle
+    attention is global-query, plain PyTorch)."""
+    paths = {"main trunk": 4 * len(model.net.layers)}
+    if full:
+        paths.update({
+            "template pair stack": 2 * model.templates_embed_layers,
+            "template pointwise": 1,
+            "extra-MSA stack": 3 * len(model.extra_msa_evoformer.layers)})
+    return paths
+
+
 def phase_parity():
     """A small fp32 model: the card (kernel path) against the CPU (plain
-    path), same weights and inputs."""
+    path), same weights and inputs; once on seq/MSA alone, once with every
+    new input at once (templates, template angles, extra MSA, seq_index,
+    sequence and MSA embeddings)."""
     from alphafold2_tpu_torch import Alphafold2, fold
     from alphafold2_tpu_torch.data.synthetic import synthetic_batch
+    from alphafold2_tpu_torch.ops import attention as attn
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kw = dict(dim=32, depth=2, heads=2, dim_head=16, predict_coords=True,
@@ -661,16 +805,28 @@ def phase_parity():
     perturb(cpu_model, SEED + 1)
     gpu_model = Alphafold2(**kw, device="cuda")
     gpu_model.load_state_dict(cpu_model.state_dict())
-    batch = synthetic_batch(np.random.default_rng(SEED), seq_len=32,
-                            msa_depth=3, with_coords=False,
+    rng = np.random.default_rng(SEED)
+    batch = synthetic_batch(rng, seq_len=32, msa_depth=3, with_coords=False,
                             pad_fraction=0.25)          # 24 valid residues
-    ref = fold(cpu_model, **batch, num_recycles=2, device="cpu")
-    out = fold(gpu_model, **batch, num_recycles=2, device="cuda")
-    err = float((out.coords.cpu() - ref.coords)[:, :24].abs().max())
-    log(f"parity small fold (dim 32, depth 2, n 32, 2 recycles) card vs "
-        f"cpu: coords max abs err {err:.3e} (tolerance 1e-3)")
-    if not err <= 1e-3:
-        raise AssertionError(f"card fold differs from cpu fold: {err}")
+    for full in (False, True):
+        feats = small_features(rng, 32, 24) if full else {}
+        ref = fold(cpu_model, **batch, num_recycles=2, device="cpu", **feats)
+        attn.launch_count.reset()
+        out = fold(gpu_model, **batch, num_recycles=2, device="cuda",
+                   **feats)
+        torch.cuda.synchronize()
+        launches = attn.launch_count.value
+        want = 3 * sum(k1_per_pass(gpu_model, full).values())
+        err = float((out.coords.cpu() - ref.coords)[:, :24].abs().max())
+        log(f"parity small fold (dim 32, depth 2, n 32, 2 recycles"
+            f"{', every new input' if full else ''}) card vs cpu: coords "
+            f"max abs err {err:.3e} (tolerance 1e-3), K1 launches "
+            f"{launches} (expected {want})")
+        if not err <= 1e-3:
+            raise AssertionError(f"card fold differs from cpu fold: {err}")
+        if launches != want:
+            raise AssertionError(f"K1 launched {launches} times, expected "
+                                 f"{want}")
 
 
 def phase_parity_block_sparse():
@@ -833,6 +989,83 @@ def check_result(result, bucket):
         raise AssertionError("non-finite distogram")
     if not ((conf >= 0) & (conf <= 1)).all():
         raise AssertionError("confidence outside [0, 1]")
+
+
+def path_launches(model):
+    """Forward hooks around the module of each K1 path of a full-feature
+    pass (the main trunk, the template pair stack, the template pointwise
+    attention, the extra-MSA stack) that add the K1 launches made inside
+    each call to that path's tally. Returns the tally and the hooks'
+    handles."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    modules = {"main trunk": model.net,
+               "template pair stack": model.template_pairwise_embedder,
+               "template pointwise": model.template_pointwise_attn,
+               "extra-MSA stack": model.extra_msa_evoformer}
+    tally = dict.fromkeys(modules, 0)
+    before = {}
+    handles = []
+    for name, module in modules.items():
+        def pre(_module, _args, name=name):
+            before[name] = attn.launch_count.value
+
+        def post(_module, _args, _out, name=name):
+            tally[name] += attn.launch_count.value - before[name]
+
+        handles += [module.register_forward_pre_hook(pre),
+                    module.register_forward_hook(post)]
+    return tally, handles
+
+
+def phase_fold_full(model):
+    """The default ModelConfig folds through `predict.fold` with the full
+    model's inputs: t=4 templates (templates_dim 32, 55 angle features;
+    the last missing, the one before it partial), e=1024 extra-MSA rows,
+    5 MSA rows, 3 recycles; requests of 256, 200 and 131 residues padded
+    to the 256 bucket. Each fold must launch K1 the counted number of
+    times on each path and give finite coords and distogram and a
+    confidence in [0, 1]. Returns (K1 launches of the folds, walls in ms,
+    peak bytes, the last request and its features)."""
+    from alphafold2_tpu_torch import fold
+    from alphafold2_tpu_torch.data.synthetic import (pad_to, synthetic_batch,
+                                                     synthetic_features)
+    passes = NUM_RECYCLES + 1
+    want = {name: count * passes
+            for name, count in k1_per_pass(model, True).items()}
+    rng = np.random.default_rng(SEED + 6)
+    tally, handles = path_launches(model)
+    launches, walls, peaks = 0, [], []
+    try:
+        for length in LENGTHS:
+            req = synthetic_batch(rng, seq_len=length, msa_depth=MSA_ROWS,
+                                  with_coords=False)
+            req = {key: pad_to(val, BUCKET, axis=val.dim() - 1)
+                   for key, val in req.items()}
+            feats = synthetic_features(rng, seq_len=BUCKET, valid=length,
+                                       num_templates=TEMPLATES,
+                                       extra_depth=EXTRA_ROWS)
+            for name in tally:
+                tally[name] = 0
+            result, k2, count, seconds, peak = count_fold(
+                lambda: fold(model, **req, num_recycles=NUM_RECYCLES,
+                             **feats))
+            log(f"fold-full {length} residues (bucket {BUCKET}, t="
+                f"{TEMPLATES}, e={EXTRA_ROWS}): {seconds * 1e3:.1f} ms "
+                f"wall, peak memory {peak / 2**30:.3f} GiB, K1 launches "
+                f"{count} ({json.dumps(tally)})")
+            check_result(result, BUCKET)
+            if k2 or tally != want or count != sum(want.values()):
+                raise AssertionError(
+                    f"full-feature fold launched K1 {count} times "
+                    f"({tally}) and K2 {k2} times, expected "
+                    f"{sum(want.values())} ({want}) and 0")
+            launches += count
+            walls.append(seconds * 1e3)
+            peaks.append(peak)
+    finally:
+        for handle in handles:
+            handle.remove()
+    return launches, walls, peaks, req, feats
 
 
 def phase_executor(model, cfg):
@@ -1008,9 +1241,12 @@ def phase_train_parity():
         state = TrainState.create(model, adam(1e-3),
                                   generator=torch.Generator().manual_seed(3))
         seen = []
-        apply = state.apply_gradients
+        apply, params = state.apply_gradients, state.params
+        # a None gradient (a parameter the loss does not reach) is zero
         state.apply_gradients = lambda grads: (
-            seen.extend(x.detach().cpu() for x in grads), apply(grads))[1]
+            seen.extend((torch.zeros_like(p) if x is None else x).detach()
+                        .cpu() for p, x in zip(params, grads)),
+            apply(grads))[1]
         attn.launch_count.reset()
         state, metrics = make_train_step(model)(
             state, {k: v.to(device) for k, v in batch.items()})
@@ -1149,8 +1385,17 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
         return 1
-    name, count = phase_device()
-    phase_build()
+    seconds = {}
+
+    def run(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = round(time.perf_counter() - t0, 1)
+        log(f"phase {phase}: {seconds[phase]} s")
+        return out
+
+    name, count = run("device", phase_device)
+    run("build", phase_build)
     if args.phases == "time":
         record = {"root": args.root or os.path.dirname(
             os.path.abspath(__file__)),
@@ -1158,30 +1403,47 @@ def main(argv=None):
                   "block_sparse_attention": phase_time_block_sparse()}
         print(json.dumps(record), flush=True)
         return 0
-    worst = phase_check()
-    bs_worst = phase_check_block_sparse()
-    edges = phase_check_edges()
+    worst = run("check", phase_check)
+    bs_worst = run("check-block-sparse", phase_check_block_sparse)
+    edges = run("check-edges", phase_check_edges)
     for dtype in (torch.float32, torch.bfloat16):
         worst[dtype] = max(worst[dtype], edges[("fused_attention", dtype)])
         bs_worst[dtype] = max(bs_worst[dtype],
                               edges[("block_sparse", dtype)])
-    timing = phase_time()
-    bs_timing = phase_time_block_sparse()
-    phase_parity()
-    phase_parity_block_sparse()
-    launches, times, model, cfg, req = phase_serve()
+    timing = run("time", phase_time)
+    bs_timing = run("time-block-sparse", phase_time_block_sparse)
+    run("parity", phase_parity)
+    run("parity-block-sparse", phase_parity_block_sparse)
+    launches, times, model, cfg, req = run("serve", phase_serve)
     log(f"serve: fold wall times {[round(s * 1e3, 1) for s in times]} ms")
     from alphafold2_tpu_torch import fold
-    phase_profile(lambda: fold(model, **req, num_recycles=NUM_RECYCLES),
-                  f"fold {LENGTHS[-1]} residues, bucket {BUCKET}")
-    bs_launches, k1_sparse, ex, batch, spec = phase_executor(model, cfg)
-    phase_profile(lambda: ex.run(batch, NUM_RECYCLES, kernel=spec),
-                  f"executor fold {SPARSE_LENGTHS[-1]} residues, bucket "
-                  f"{SPARSE_BUCKET} ({spec.label})")
+    run("profile", phase_profile,
+        lambda: fold(model, **req, num_recycles=NUM_RECYCLES),
+        f"fold {LENGTHS[-1]} residues, bucket {BUCKET}")
+    full_launches, full_walls, full_peaks, full_req, feats = run(
+        "fold-full", phase_fold_full, model)
+    busy, _, table = run(
+        "fold-full-profile", phase_profile,
+        lambda: fold(model, **full_req, num_recycles=NUM_RECYCLES, **feats),
+        f"full-feature fold {LENGTHS[-1]} residues, bucket {BUCKET}, "
+        f"t={TEMPLATES}, e={EXTRA_ROWS}")
+    k1_full_ms = table.get("fused_attention (K1)", (0.0, 0))[0]
+    log(f"fold-full: walls {[round(w, 1) for w in full_walls]} ms, peak "
+        f"memory {max(full_peaks) / 2**30:.3f} GiB, K1 "
+        f"{k1_full_ms:.1f} ms of {busy:.1f} ms device time "
+        f"({100 * k1_full_ms / busy:.1f} %)")
+    del full_req, feats
+    bs_launches, k1_sparse, ex, batch, spec = run("executor", phase_executor,
+                                                  model, cfg)
+    run("executor-profile", phase_profile,
+        lambda: ex.run(batch, NUM_RECYCLES, kernel=spec),
+        f"executor fold {SPARSE_LENGTHS[-1]} residues, bucket "
+        f"{SPARSE_BUCKET} ({spec.label})")
     del ex, model
-    grad_worst = phase_train_check()
-    train = phase_train()
-    recycled = phase_train_recycled()
+    grad_worst = run("train-check", phase_train_check)
+    train = run("train", phase_train)
+    recycled = run("train-recycled", phase_train_recycled)
+    log(f"phase seconds: {json.dumps(seconds)}")
     record = {"kernels": [{
         "name": "fused_attention",
         "route": "cuda",
@@ -1190,6 +1452,11 @@ def main(argv=None):
         "launches": launches,
         "launches_per_fold": launches // len(LENGTHS),
         "launches_per_fold_512": k1_sparse // len(SPARSE_LENGTHS),
+        "launches_per_fold_full": full_launches // len(LENGTHS),
+        "fold_full_wall_ms": full_walls,
+        "fold_full_peak_gib": max(full_peaks) / 2**30,
+        "fold_full_k1_device_ms": k1_full_ms,
+        "fold_full_device_busy_ms": busy,
         "launches_per_train_step": train["k1_launches_per_step"],
         "launches_per_recycled_train_step": recycled["k1_launches"],
         "recycles_of_that_step": recycled["r"],

@@ -151,6 +151,67 @@ def test_cuda_kernel_edge_shapes(cuda_device, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_template_pointwise_shape(cuda_device, dtype):
+    """K1 at the template pointwise attention's shape: one query over t=4
+    keys for each of 524,288 batch*head rows (65,536 pair cells, heads
+    8), with ragged key masks, cells whose keys are all masked (they
+    average every key, as the plain version does) and masked queries;
+    against the plain version in fp32 on the same values (atol 1e-4 fp32,
+    2e-2 bf16)."""
+    dt = getattr(torch, dtype)
+    atol = 1e-4 if dt == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(3)
+    cells, heads, t, d = 65536, 8, 4, 64
+    q = torch.randn(cells * heads, 1, d, generator=g) * 0.5
+    k = torch.randn(cells * heads, t, d, generator=g) * 0.5
+    v = torch.randn(cells * heads, t, d, generator=g)
+    k_mask = torch.arange(t)[None] < torch.randint(0, t + 1, (cells, 1),
+                                                   generator=g)
+    q_mask = torch.rand(cells, 1, generator=g) < 0.9
+    args = [x.to(cuda_device, dt) for x in (q, k, v)]
+    qm, km = q_mask.to(cuda_device), k_mask.to(cuda_device)
+    assert not bool(k_mask.any(-1).all())        # some cells have no key
+    pt_attn.launch_count.reset()
+    out = pt_attn.fused_attention(*args, q_mask=qm, k_mask=km, heads=heads)
+    torch.cuda.synchronize()
+    assert pt_attn.launch_count.value == 1
+    ref = pt_attn.attention_reference(*(x.float() for x in args),
+                                      q_mask=qm, k_mask=km, heads=heads)
+    assert torch.isfinite(out).all()
+    err = float((out.float() - ref).abs().max())
+    assert err <= atol, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_long_key_row(cuda_device, dtype):
+    """K1 at N=1024, the extra-MSA column attention's length (1024 extra
+    rows attend each other for every residue), with a ragged row mask and
+    a fully masked row, on 8 residues x 8 heads: against the plain
+    version in fp32 on the same values (atol 1e-4 fp32, 2e-2 bf16)."""
+    dt = getattr(torch, dtype)
+    atol = 1e-4 if dt == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(4)
+    cols, heads, n, d = 8, 8, 1024, 64
+    q, k = (torch.randn(cols * heads, n, d, generator=g) * 0.5
+            for _ in range(2))
+    v = torch.randn(cols * heads, n, d, generator=g)
+    mask = torch.arange(n)[None] < torch.randint(600, n + 1, (cols, 1),
+                                                 generator=g)
+    mask[5] = False
+    args = [x.to(cuda_device, dt) for x in (q, k, v)]
+    m = mask.to(cuda_device)
+    out = pt_attn.fused_attention(*args, q_mask=m, k_mask=m, heads=heads)
+    torch.cuda.synchronize()
+    ref = pt_attn.attention_reference(*(x.float() for x in args), q_mask=m,
+                                      k_mask=m, heads=heads)
+    assert torch.isfinite(out).all()
+    err = float((out.float() - ref).abs().max())
+    assert err <= atol, err
+
+
+@pytest.mark.gpu
 def test_cuda_fold_matches_cpu_fold(cuda_device):
     """A small fp32 model folds on the card (through the kernel) as it
     does on the CPU (plain version), from the same weights: coordinates
@@ -406,9 +467,11 @@ def test_cuda_train_step_matches_cpu_step(cuda_device):
         state = TrainState.create(model, adam(1e-3),
                                   generator=torch.Generator().manual_seed(2))
         seen = []
-        apply = state.apply_gradients
+        apply, params = state.apply_gradients, state.params
+        # a None gradient (a parameter the loss does not reach) is zero
         state.apply_gradients = lambda gr: (
-            seen.extend(x.detach().cpu() for x in gr), apply(gr))[1]
+            seen.extend((torch.zeros_like(p) if x is None else x).detach()
+                        .cpu() for p, x in zip(params, gr)), apply(gr))[1]
         before = pt_attn.launch_count.value
         state, metrics = make_train_step(model)(
             state, {k: v.to(device) for k, v in batch.items()})
@@ -419,3 +482,27 @@ def test_cuda_train_step_matches_cpu_step(cuda_device):
     assert max(float((a - b).abs().max()) for a, b in zip(g_cpu, g_gpu)) \
         <= 1e-3
     assert launches == 16     # 4 attentions x 2 layers, forward + remat
+
+
+@pytest.mark.gpu
+def test_adam_leaves_unreached_parameters_bit_equal(cuda_device):
+    """On the card (the foreach kernels over other lists): the chain fed
+    None for never-reached parameters is bit-equal to the chain fed
+    explicit zeros, with clipping, over 8 steps."""
+    from alphafold2_tpu_torch.train.state import adam
+
+    g = torch.Generator().manual_seed(5)
+    shapes = [(64, 32), (300,), (7, 7), (1000,), (3,)]
+    init = [torch.randn(s, generator=g).to(cuda_device) for s in shapes]
+    zeros = adam(1e-2, max_grad_norm=1.0)([p.clone() for p in init])
+    skips = adam(1e-2, max_grad_norm=1.0)([p.clone() for p in init])
+    for i in range(8):
+        grads = [torch.randn(s, generator=g).to(cuda_device) for s in shapes]
+        unreached = {1, 3} if i < 3 else {3}
+        zeros.update([torch.zeros_like(x) if at in unreached else x
+                      for at, x in enumerate(grads)])
+        skips.update([None if at in unreached else x
+                      for at, x in enumerate(grads)])
+        for a, b in zip(zeros.params + zeros.tensors(),
+                        skips.params + skips.tensors()):
+            assert torch.equal(a, b)

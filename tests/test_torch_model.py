@@ -78,7 +78,9 @@ def padded_mask(b, n, valid=VALID):
 
 def test_constants_match():
     for name in ("MAX_NUM_MSA", "MAX_NUM_TEMPLATES", "NUM_AMINO_ACIDS",
-                 "NUM_EMBEDDS_TR", "DISTOGRAM_BUCKETS",
+                 "NUM_EMBEDDS_TR", "DISTOGRAM_BUCKETS", "THETA_BUCKETS",
+                 "PHI_BUCKETS", "OMEGA_BUCKETS", "MSA_EMBED_DIM",
+                 "PROTTRAN_EMBED_DIM", "ESM_EMBED_DIM",
                  "DISTOGRAM_MIN_DIST", "DISTOGRAM_MAX_DIST",
                  "IGNORE_INDEX"):
         assert getattr(pt_constants, name) == getattr(jax_constants, name)
@@ -338,17 +340,11 @@ def test_bridge_refuses_strays_and_gaps(models):
 
 
 @pytest.mark.parametrize("case", [
-    "templates", "extra_msa", "structure_module_type", "ring_attention",
-    "kernel", "predict_angles"])
-def test_unported_options_raise(models, case):
-    _, _, pm, batch = models
-    tb = torch_batch(batch)
+    "reversible", "structure_module_type", "ring_attention", "kernel",
+    "use_conv", "structure_module_refinement_iters"])
+def test_unported_options_raise(case):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "templates":
-            pm(**tb, templates_feats=torch.zeros(1, 1, N, N, 32))
-        elif case == "extra_msa":
-            pm(**tb, extra_msa=tb["msa"])
-        elif case == "structure_module_type":
+        if case == "structure_module_type":
             pt_af2.Alphafold2(**dict(MODEL_KW, structure_module_type="egnn"),
                               device="cpu")
         elif case == "kernel":
@@ -356,6 +352,8 @@ def test_unported_options_raise(models, case):
             # the model-level block-sparse row attention is not
             pt_af2.Alphafold2(**dict(MODEL_KW, sparse_self_attn=True),
                               device="cpu")
+        elif case == "structure_module_refinement_iters":
+            pt_af2.Alphafold2(**dict(MODEL_KW, **{case: 2}), device="cpu")
         else:
             pt_af2.Alphafold2(**dict(MODEL_KW, **{case: True}),
                               device="cpu")

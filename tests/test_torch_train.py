@@ -528,7 +528,9 @@ def port_step(model, step, batch, generator=None):
     apply = state.apply_gradients
 
     def keep(grads):
-        seen.extend(g.clone() for g in grads)
+        # a None gradient (a parameter the loss does not reach) is zero
+        seen.extend(torch.zeros_like(p) if g is None else g.clone()
+                    for p, g in zip(state.params, grads))
         return apply(grads)
 
     state.apply_gradients = keep
@@ -719,6 +721,39 @@ def test_clip_by_global_norm_matches_optax():
             [torch.zeros(4, 3), torch.zeros(5)])
         opt.update([t(grads["a"]), t(grads["b"])])
         close(np.asarray(ref["a"]) * 0.1, opt.mu[0], atol=1e-6)
+
+
+@pytest.mark.parametrize("accum,clip", [(1, None), (1, 0.5), (3, 0.5)],
+                         ids=["plain", "clipped", "accumulated"])
+def test_unreached_parameters_leave_the_chain_bit_equal(accum, clip):
+    """A None gradient is a zero one: the chain skips parameters that have
+    never had a gradient, and every parameter, moment and accumulator is
+    bit-equal to the chain fed explicit zeros, through a parameter's
+    first gradient (step 4), clipping, accumulation and a state reload."""
+    rng = np.random.default_rng(39)
+    shapes = [(4, 3), (5,), (2, 2), (6,)]
+    init = [t(rng.normal(size=s).astype(np.float32)) for s in shapes]
+    spec = pt_state.adam(1e-2, grad_accum_every=accum, max_grad_norm=clip)
+    zeros, skips = spec([p.clone() for p in init]), spec(
+        [p.clone() for p in init])
+    for i in range(12):
+        grads = [t(rng.normal(size=s).astype(np.float32)) for s in shapes]
+        # parameter 2 gets its first gradient at step 4; 3 never gets one
+        unreached = {2, 3} if i < 4 else {3}
+        zeros.update([torch.zeros_like(g) if at in unreached else g
+                      for at, g in enumerate(grads)])
+        skips.update([None if at in unreached else g
+                      for at, g in enumerate(grads)])
+        if i == 6:
+            reloaded = spec([p.clone() for p in skips.params])
+            reloaded.load_state_dict(skips.state_dict())
+            assert reloaded.reached == [True, True, True, False]
+            skips = reloaded
+        for a, b in zip(zeros.params + zeros.tensors(),
+                        skips.params + skips.tensors()):
+            assert torch.equal(a, b)
+    assert skips.reached == [True, True, True, False]
+    assert torch.equal(skips.params[3], init[3])
 
 
 # ---------------------------------------------------------------------------

@@ -10,12 +10,16 @@ from alphafold2_tpu_torch.config import ModelConfig
 from alphafold2_tpu_torch.model.alphafold2 import (Alphafold2, Recyclables,
                                                    ReturnValues)
 from alphafold2_tpu_torch.predict import (DEFAULT_NUM_RECYCLES, FoldResult,
-                                          FoldStepState, fold, fold_init,
-                                          fold_init_rows, fold_step)
+                                          FoldStepState, fold,
+                                          fold_and_write, fold_init,
+                                          fold_init_rows, fold_step,
+                                          restore_step_state,
+                                          snapshot_step_state)
 from alphafold2_tpu_torch.weights import load_jax_params
 
 __all__ = [
     "Alphafold2", "DEFAULT_NUM_RECYCLES", "FoldResult", "FoldStepState",
-    "ModelConfig", "Recyclables", "ReturnValues", "fold", "fold_init",
-    "fold_init_rows", "fold_step", "load_jax_params",
+    "ModelConfig", "Recyclables", "ReturnValues", "fold", "fold_and_write",
+    "fold_init", "fold_init_rows", "fold_step", "load_jax_params",
+    "restore_step_state", "snapshot_step_state",
 ]

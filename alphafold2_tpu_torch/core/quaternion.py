@@ -57,3 +57,14 @@ def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def quaternion_invert(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate of a unit quaternion."""
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                            device=q.device)
+
+
+def rotate_vector(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate (..., 3) vectors by (..., 4) quaternions."""
+    return torch.einsum("...c,...cd->...d", v, quaternion_to_matrix(q))

@@ -46,3 +46,11 @@ class Rigid(NamedTuple):
         """global (..., P, 3) -> local, frames broadcast over P."""
         local = points - self.translations[..., None, :]
         return torch.einsum("...pd,...cd->...pc", local, self.rotations)
+
+    def compose_update(self, dq: torch.Tensor, dt: torch.Tensor) -> "Rigid":
+        """Apply a local-frame update: q <- q * dq (Hamilton),
+        t <- t + dt @ R."""
+        new_q = quat.quaternion_multiply(self.quaternions, dq)
+        new_t = self.translations + torch.einsum("...c,...cd->...d", dt,
+                                                 self.rotations)
+        return Rigid(new_q, new_t)

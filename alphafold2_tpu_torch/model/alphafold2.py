@@ -100,11 +100,18 @@ class Alphafold2(nn.Module):
         predict_coords: bool = False,
         structure_module_depth: int = 4,
         structure_module_heads: int = 1,
+        # accepted and never read, as in the JAX package (its IPA takes
+        # no head width from the model)
+        structure_module_dim_head: int = 4,
         structure_module_type: str = "ipa",
         structure_module_refinement_iters: int = 0,
         structure_module_refinement: str = "residue",
         outer_mean_reference_scale: bool = False,
         disable_token_embed: bool = False,
+        mlm_mask_prob: float = 0.15,
+        mlm_random_replace_token_prob: float = 0.1,
+        mlm_keep_token_same_prob: float = 0.1,
+        mlm_exclude_token_ids: tuple = (0,),
         recycling_distance_buckets: int = 32,
         linear_attn_kind: str = "favor",
         performer_nb_features: int = 256,
@@ -158,7 +165,11 @@ class Alphafold2(nn.Module):
                 heads=structure_module_heads)
             self.lddt_linear = Dense(dim, 1)
         # the last embedding row is the mask token
-        self.mlm = MLM(dim, num_tokens, mask_id=num_tokens)
+        self.mlm = MLM(dim, num_tokens, mask_id=num_tokens,
+                       mask_prob=mlm_mask_prob,
+                       random_replace_token_prob=mlm_random_replace_token_prob,
+                       keep_token_same_prob=mlm_keep_token_same_prob,
+                       exclude_token_ids=mlm_exclude_token_ids)
 
         # pretrained embeddings: the embedds-only MSA, and one projector
         # per known LM width (and num_embedds) other than dim

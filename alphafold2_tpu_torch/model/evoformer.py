@@ -145,6 +145,11 @@ _NOT_PORTED = {
     "pipeline_stages": (1, "queue 1, item 10 (parallel/pipeline.py)"),
     "reversible": (False, "queue 1, item 11 (model/reversible.py)"),
     "use_conv": (False, "queue 1, item 11 (attention_variants.py)"),
+    "conv_seq_kernels": (((9, 1), (1, 9), (3, 3)),
+                         "queue 1, item 11 (attention_variants.py)"),
+    "conv_msa_kernels": (((1, 9), (3, 3)),
+                         "queue 1, item 11 (attention_variants.py)"),
+    "conv_dilations": ((1,), "queue 1, item 11 (attention_variants.py)"),
     "sparse_self_attn": (False, "queue 1, item 11 "
                          "(attention_variants.BlockSparseAttention)"),
     "linear_attn": (False, "queue 1, item 11 (attention_variants.py)"),

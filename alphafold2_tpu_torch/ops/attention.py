@@ -21,6 +21,12 @@ CUDA tensors and the plain version for CPU tensors: bf16 runs on the
 tensor-core tile (`csrc/attention_tile.cuh`), fp32 on the CUDA cores. On
 the card there is no fallback: a tensor the kernel does not take raises.
 
+Head widths on the card (`kernel_head_dim`): D in {16, 32, 64, 128}
+launches as it is; any other D up to 128 is zero-padded along D to the
+next of those widths, launched, and sliced back (exact: zero columns add
+nothing to q . k^T, and q arrives pre-scaled); D > 128 raises ValueError
+naming the width (the tile has no wider instance yet).
+
 In bf16 the kernel rounds the softmax weights to bf16 before the product
 with v, as the plain version does (`attn.to(q.dtype)`), but keeps the
 logits in fp32 where the plain version rounds them.
@@ -31,6 +37,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from alphafold2_tpu_torch.ops import build
 
@@ -76,6 +83,32 @@ def attention_reference(q, k, v, bias=None, q_mask=None, k_mask=None,
         logits = logits.masked_fill(~valid, MASK_VALUE)
     attn = torch.softmax(logits, dim=-1)
     return torch.einsum("bnm,bmd->bnd", attn.to(q.dtype), v)
+
+
+def kernel_head_dim(d: int) -> int:
+    """The instantiated head width a width-`d` attention launches at:
+    the smallest of HEAD_DIMS >= d. Raises ValueError above 128."""
+    for width in HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"head width {d} > {HEAD_DIMS[-1]}: the attention "
+                     f"kernels have no instance wider than "
+                     f"{HEAD_DIMS[-1]} (ROADMAP.md, queue 3)")
+
+
+def pad_head_dim(launch, q, k, v, *args, **kwargs):
+    """`launch(q, k, v, *args, **kwargs)` at the kernel's head width:
+    q, k, v zero-padded along D up to `kernel_head_dim(D)` and the output
+    sliced back to D (autograd-able, so a backward through the padded
+    launch still works)."""
+    d = q.shape[-1]
+    width = kernel_head_dim(d)
+    if width == d:
+        return launch(q, k, v, *args, **kwargs)
+    pad = (0, width - d)
+    out = launch(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), *args,
+                 **kwargs)
+    return out[..., :d]
 
 
 def _check(q, k, v, bias, q_mask, k_mask, heads, bias_repeat):
@@ -197,9 +230,9 @@ def fused_attention(q, k, v, bias=None, q_mask=None, k_mask=None, *,
                     heads: int = 1, bias_repeat: int = 1) -> torch.Tensor:
     """Fused bias + mask + softmax + PV attention (differentiable).
 
-    CUDA tensors go through the CUDA kernel (any N >= 1, D in
-    {16, 32, 64, 128}, float32 or bfloat16); CPU tensors take the plain
-    version. Any other device raises."""
+    CUDA tensors go through the CUDA kernel (any N >= 1, D <= 128 —
+    padded to the next of {16, 32, 64, 128} — float32 or bfloat16); CPU
+    tensors take the plain version. Any other device raises."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, bias=bias, q_mask=q_mask,
                                    k_mask=k_mask, heads=heads,
@@ -207,5 +240,5 @@ def fused_attention(q, k, v, bias=None, q_mask=None, k_mask=None, *,
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cuda or cpu, not "
                          f"{q.device}")
-    return _FusedAttention.apply(q, k, v, bias, q_mask, k_mask, heads,
-                                 bias_repeat)
+    return pad_head_dim(_FusedAttention.apply, q, k, v, bias, q_mask,
+                        k_mask, heads, bias_repeat)

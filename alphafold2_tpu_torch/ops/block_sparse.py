@@ -30,10 +30,29 @@ version. Contract, shared by both:
   (the tensor cores take bf16 operands); the plain version does not.
   Forward only.
 
-A `BlockPlan` is a pattern's column list on one device: `cols`
-(nqb, T) int32 and the per-row live `counts` (nqb,) int32. The serving
-executor uploads one per key when it builds the key, so no launch
-copies the plan to the card.
+A `BlockPlan` is a pattern's column list on one device: `cols` (rows,
+T) int32 and the per-row live `counts` (rows,) int32, over blocks of the
+plan's `kernel_block` (below). The serving executor uploads one per key
+when it builds the key, so no launch copies the plan to the card.
+
+Which shape takes which route on the card (`block_sparse_attention`):
+
+- block in {16, 32, 64, 128}: K2 over the plan as it is;
+- any other block that is a multiple of 16 (48, 80, 96, ...): K2 over
+  the same live set re-planned at `kernel_block`, the largest of those
+  widths that divides the block (each live block becomes a square of
+  live sub-blocks); the plan holds the re-planned columns;
+- any other block (8, 24, 40, ...): kernel K1 (`ops.attention`) with the
+  pattern as a -1e9 additive bias on top of the caller's bias, counted
+  as a K1 launch. Exact wherever a query row has an unmasked live key
+  (every q-block keeps a live block). A row whose live keys are all
+  masked would average over every key under that bias, so the wrapper
+  overwrites such rows with the mean of v over their live keys, as the
+  contract gives (`_average_shut_rows`, O(B N D) on the card);
+- D outside {16, 32, 64, 128} and <= 128: zero-padded along D on either
+  kernel (`ops.attention.pad_head_dim`); D > 128 raises.
+
+There is no plain fallback on the card.
 """
 
 from __future__ import annotations
@@ -51,7 +70,9 @@ import torch
 from alphafold2_tpu_torch import constants
 from alphafold2_tpu_torch.ops import build
 from alphafold2_tpu_torch.ops.attention import (_DTYPE_CODES, HEAD_DIMS,
-                                                MASK_VALUE, LaunchCounter)
+                                                MASK_VALUE, LaunchCounter,
+                                                fused_attention,
+                                                pad_head_dim)
 
 BLOCKS = (16, 32, 64, 128)
 BACKENDS = ("auto", "masked")
@@ -89,13 +110,27 @@ def plan_block_pattern(pattern: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return cols, valid
 
 
+def kernel_block(block: int) -> int:
+    """The block K2 runs a `block`-sized pattern at: the block itself
+    when K2 has that instance, else the largest instance dividing it; 0
+    when none does (the pattern then runs on K1 as a bias)."""
+    divisors = [b for b in BLOCKS if block % b == 0]
+    return max(divisors) if divisors else 0
+
+
 class BlockPlan(NamedTuple):
-    """A block pattern's column list on one device (see module doc)."""
+    """A block pattern's column list on one device (see module doc).
+    `cols`/`counts` index blocks of `kernel_block` tokens (the pattern
+    re-planned when its block has no K2 instance); with `kernel_block`
+    0 the card runs K1 and `bias` holds the pattern as an (n, n) fp32
+    0 / -1e9 additive bias."""
 
     pattern: np.ndarray        # (nqb, nqb) bool, host copy
     block: int
-    cols: torch.Tensor         # (nqb, T) int32
-    counts: torch.Tensor       # (nqb,) int32
+    cols: torch.Tensor         # (nqb * r, T) int32, r = block / kernel_block
+    counts: torch.Tensor       # (nqb * r,) int32
+    kernel_block: int
+    bias: Optional[torch.Tensor]   # (n, n) fp32 when kernel_block is 0
 
     @property
     def n(self) -> int:
@@ -106,11 +141,23 @@ class BlockPlan(NamedTuple):
         pattern = np.asarray(pattern, dtype=bool)
         if pattern.ndim != 2 or pattern.shape[0] != pattern.shape[1]:
             raise ValueError(f"pattern must be square, got {pattern.shape}")
-        cols, valid = plan_block_pattern(pattern)
-        return cls(pattern, int(block),
-                   torch.as_tensor(cols, device=device),
+        block = int(block)
+        kb = kernel_block(block)
+        bias = None
+        live = pattern
+        if kb:
+            r = block // kb
+            live = np.kron(pattern, np.ones((r, r), bool))
+        else:
+            plan_block_pattern(pattern)          # validates every row
+            bias = torch.as_tensor(np.where(token_mask(pattern, block),
+                                            np.float32(0.0),
+                                            np.float32(MASK_VALUE)),
+                                   device=device)
+        cols, valid = plan_block_pattern(live)
+        return cls(pattern, block, torch.as_tensor(cols, device=device),
                    torch.as_tensor(valid.sum(axis=1, dtype=np.int32),
-                                   device=device))
+                                   device=device), kb, bias)
 
 
 def token_mask(pattern: np.ndarray, block: int) -> np.ndarray:
@@ -376,8 +423,9 @@ def _check(q, k, v, plan, bias, bias_repeat, k_mask, heads):
     b, n, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head width {d} not in {HEAD_DIMS}")
-    if plan.block not in BLOCKS:
-        raise ValueError(f"block {plan.block} not in {BLOCKS}")
+    if plan.kernel_block not in BLOCKS:
+        raise ValueError(f"kernel block {plan.kernel_block} not in "
+                         f"{BLOCKS}")
     if n != plan.n:
         raise ValueError(f"N={n} but the plan covers {plan.n} "
                          f"({plan.pattern.shape[0]} blocks of {plan.block})")
@@ -417,9 +465,10 @@ def block_sparse_attention(q, k, v, plan, *, bias=None,
                            block: Optional[int] = None) -> torch.Tensor:
     """Attention over the live blocks of `plan` (a `BlockPlan` on q's
     device, or a raw (nqb, nqb) pattern with `block=`). CUDA tensors go
-    through kernel K2 (D in {16, 32, 64, 128}, block in {16, 32, 64,
-    128}, float32 or bfloat16); CPU tensors take the plain version. Any
-    other device raises, and so does a tensor the kernel does not take."""
+    through kernel K2, or K1 for a block with no K2 instance (routes in
+    the module doc), float32 or bfloat16, D <= 128; CPU tensors take the
+    plain version. Any other device raises, and so does a tensor the
+    kernels do not take."""
     if q.device.type == "cpu":
         return block_sparse_reference(q, k, v, plan, bias=bias,
                                       bias_repeat=bias_repeat,
@@ -432,11 +481,64 @@ def block_sparse_attention(q, k, v, plan, *, bias=None,
             t is not None and t.requires_grad for t in (q, k, v, bias)):
         raise RuntimeError("block_sparse_attention is forward only; run it "
                            "under torch.no_grad() or inference_mode()")
-    plan = _as_plan(plan, block, q.device)
+    return kernel_route(q, k, v, _as_plan(plan, block, q.device), bias=bias,
+                        bias_repeat=bias_repeat, k_mask=k_mask, heads=heads,
+                        scale=scale)
+
+
+def kernel_route(q, k, v, plan: BlockPlan, *, bias=None,
+                 bias_repeat: int = 1, k_mask=None, heads: int = 1,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """The card's routes (module doc): K1 with the pattern as a bias when
+    the plan has no kernel block, else K2 over the plan's kernel blocks,
+    either at the padded head width. The scale defaults to the caller's
+    D^-1/2, taken before any padding."""
+    if scale is None:
+        scale = float(q.shape[-1]) ** -0.5
+    if plan.kernel_block:
+        return pad_head_dim(_launch, q, k, v, plan, bias=bias,
+                            bias_repeat=bias_repeat, k_mask=k_mask,
+                            heads=heads, scale=scale)
+    if scale != 1.0:
+        q = q * scale
+    if bias is None:
+        # the plan's one (1, n, n) bias read by every row: K1 indexes the
+        # bias by `heads`, so run it with heads 1 and the mask per row
+        out = fused_attention(
+            q, k, v, plan.bias[None], None,
+            None if k_mask is None else k_mask.repeat_interleave(heads, 0),
+            bias_repeat=q.shape[0])
+    else:
+        out = fused_attention(q, k, v, bias + plan.bias, None, k_mask,
+                              heads=heads, bias_repeat=bias_repeat)
+    if k_mask is None:
+        return out
+    return _average_shut_rows(out, v, plan, k_mask, heads)
+
+
+def _average_shut_rows(out, v, plan: BlockPlan, k_mask, heads: int):
+    """K1 route: a query row whose live keys are all masked is, by the
+    contract, the mean of v over its live keys (they tie at -1e9, dead
+    keys are -inf). Under the -1e9 pattern bias K1 ties every key
+    there, so overwrite those rows, per (mask row, q-block), with that
+    mean; every other row is K1's as it came."""
+    b, n, d = v.shape
+    nb, block = plan.pattern.shape[0], plan.block
+    live = (plan.bias[::block, ::block] == 0).float()          # (nqb, nkb)
+    open_blocks = k_mask.reshape(-1, nb, block).any(-1).float()
+    shut = (open_blocks @ live.T == 0).repeat_interleave(heads, 0)
+    vsum = v.float().reshape(b, nb, block, d).sum(2)           # (B, nkb, D)
+    mean = torch.einsum("qk,bkd->bqd", live, vsum) / (
+        live.sum(1) * block)[:, None]
+    return torch.where(shut[:, :, None, None], mean.to(out.dtype)[:, :, None],
+                       out.reshape(b, nb, block, d)).reshape(b, n, d)
+
+
+def _launch(q, k, v, plan, *, bias, bias_repeat, k_mask, heads, scale):
+    """One launch of K2 on the current stream, at the plan's kernel
+    block."""
     _check(q, k, v, plan, bias, bias_repeat, k_mask, heads)
     b, n, d = q.shape
-    if scale is None:
-        scale = float(d) ** -0.5
     fn = _library()
     out = torch.empty_like(q)
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -444,11 +546,11 @@ def block_sparse_attention(q, k, v, plan, *, bias=None,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(k_mask),
                  ptr(plan.cols), ptr(plan.counts), ptr(out), b, n, d,
-                 plan.block, int(plan.cols.shape[1]), heads, bias_repeat,
-                 float(scale), _DTYPE_CODES[q.dtype], stream)
+                 plan.kernel_block, int(plan.cols.shape[1]), heads,
+                 bias_repeat, float(scale), _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"block_sparse_attention kernel launch failed: "
                            f"CUDA error {err} (B={b}, N={n}, D={d}, "
-                           f"block={plan.block})")
+                           f"block={plan.kernel_block})")
     launch_count.value += 1
     return out

@@ -1,5 +1,5 @@
 """Inference API: fold sequences with recycling and confidence
-(counterpart of `alphafold2_tpu/predict.py:20-260`).
+(counterpart of `alphafold2_tpu/predict.py`).
 
 `fold` runs the first pass and `num_recycles` recycling passes;
 `fold_init` / `fold_step` split the same loop into steps a scheduler can
@@ -19,13 +19,21 @@ index arrays as long.
 goes through the block-sparse kernel. `plan` is the spec's plan on the
 device; the serving executor passes the one it holds per key, and an
 entry point given none uploads one per call.
+
+`snapshot_step_state` / `restore_step_state` take a host copy of a
+step-loop carry and put it back byte-equal, on the device each leaf came
+from. `fold_and_write` folds a batch and writes one PDB per element,
+memoised in a `cache.FoldCache` whose keys equal the JAX package's, with
+one request-scoped `obs.Tracer` trace per call.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from alphafold2_tpu_torch.device import resolve_device
@@ -174,3 +182,239 @@ def fold_init_rows(model, seq, row_mask, state: FoldStepState, msa=None,
     row_mask = torch.as_tensor(row_mask, device=fresh.coords.device).bool()
     with torch.inference_mode():
         return _select_rows(row_mask, fresh, state)
+
+
+# -- step-state snapshots -----------------------------------------------------
+
+_LEAF = object()
+
+
+def tree_flatten(tree):
+    """(leaves, treedef) in the JAX package's `tree_flatten` order:
+    NamedTuple fields and tuple/list items in order, dict values by
+    sorted key, None an empty subtree (dropped); anything else is a
+    leaf. So a `FoldStepState` flattens as coords, confidence,
+    distogram, then the Recyclables' coords, single_msa_repr_row,
+    pairwise_repr, the order a checkpoint written by either package
+    keeps."""
+    leaves = []
+
+    def walk(node):
+        if node is None:
+            return None
+        if isinstance(node, (tuple, list)):
+            return (type(node), [walk(x) for x in node])
+        if isinstance(node, dict):
+            keys = sorted(node)
+            return (dict, keys, [walk(node[k]) for k in keys])
+        leaves.append(node)
+        return _LEAF
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef, leaves):
+    """Inverse of `tree_flatten`."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if node is _LEAF:
+            return next(it)
+        if node[0] is dict:
+            return {k: build(c) for k, c in zip(node[1], node[2])}
+        kind, children = node
+        items = [build(c) for c in children]
+        return kind(*items) if hasattr(kind, "_fields") else kind(items)
+
+    return build(treedef)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A copy of a tensor's bytes as a numpy array of its dtype (bf16
+    through ml_dtypes' bfloat16, the dtype the JAX package's host copies
+    have). Always a copy: a CPU tensor's `.numpy()` would share memory
+    that the step loop may later write in place."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def _live_device(device) -> torch.device:
+    """`device` if this process still has it, else the default device
+    (the card, or a raise without one: never the CPU in silence)."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type == "cpu":
+            return device
+        if device.type == "cuda" and torch.cuda.is_available() and (
+                device.index is None
+                or device.index < torch.cuda.device_count()):
+            return resolve_device(device)
+    return resolve_device(None)
+
+
+def snapshot_step_state(state):
+    """Host copy of a step-loop carry: (treedef, entries), one entry per
+    leaf in `tree_flatten` order — ("dev", numpy copy, torch.device) for
+    a tensor, ("ref", leaf, None) for anything else (kept by reference).
+    Nothing in it refers to the model or an executor."""
+    leaves, treedef = tree_flatten(state)
+    snap = []
+    for leaf in leaves:
+        if isinstance(leaf, torch.Tensor):
+            snap.append(("dev", _to_host(leaf), leaf.device))
+        else:
+            snap.append(("ref", leaf, None))
+    return treedef, snap
+
+
+def restore_step_state(snapshot):
+    """Put a `snapshot_step_state` copy back: each tensor leaf on the
+    device it was taken from (where this process no longer has that
+    device, the default device: the card, or a raise), reference leaves
+    as they are. The restored carry is byte-equal to the snapshotted
+    one."""
+    treedef, snap = snapshot
+    leaves = [val if kind != "dev" else _to_device(val, _live_device(place))
+              for kind, val, place in snap]
+    return tree_unflatten(treedef, leaves)
+
+
+# -- fold to PDB -------------------------------------------------------------
+
+# keyword arguments that never enter a cache key: those JAX leaves out,
+# and the port's kernel device plan (`device` is a named parameter)
+_NOT_KEYED = ("msa", "mask", "msa_mask", "num_recycles", "plan")
+
+
+def fold_and_write(model, seq, out_path: str, cache=None,
+                   model_tag: str = "", tracer=None, device=None,
+                   **kwargs) -> list:
+    """fold() + PDB output of the CA trace (`data.pdb_io.coords2pdb`).
+
+    Folds the whole (b, n) batch in one forward pass and writes one PDB
+    per batch element: `out_path` for a batch of 1, `<stem>_k<ext>` for
+    element k otherwise. Returns the written paths. `mask` trims each
+    element's padding from the written trace. `kwargs` are fold's
+    (`msa`, `mask`, `msa_mask`, `num_recycles`, `kernel`, `plan`, the
+    model's extra inputs); `device` is where the fold runs (the card
+    unless the caller names another).
+
+    cache: optional `cache.FoldCache`. Keys cover each element's
+    unpadded (seq, msa, msa_mask, num_recycles), `model_tag` and any
+    scalar extra model input, exactly as the JAX package's
+    `fold_and_write` keys them, so one cache directory serves both
+    packages (`device` and `plan` never enter a key). A call with an
+    array-valued or unhashable extra (a `KernelSpec`, batched
+    conditioning) folds uncached. The forward pass is skipped only when
+    every element hits; a partial hit folds the batch and refreshes the
+    store.
+
+    tracer: optional `obs.Tracer`: the call gets one trace
+    (cache_lookup / fold / write spans, cache hit/miss events, source
+    "cache" when the forward pass was skipped) in the JAX package's
+    JSONL schema. The fold span ends with the copy of the coordinates
+    to the host, so it times the card's work, not only its launches.
+    """
+    from alphafold2_tpu_torch.obs.trace import NULL_TRACER
+
+    trace = (tracer or NULL_TRACER).start_trace(out_path)
+    try:
+        return _fold_and_write_traced(model, seq, out_path, cache,
+                                      model_tag, trace, device, **kwargs)
+    except BaseException as exc:
+        # every trace reaches exactly one terminal state, failures too
+        trace.finish("error", error=repr(exc))
+        raise
+
+
+def _fold_and_write_traced(model, seq, out_path, cache, model_tag, trace,
+                           device, **kwargs) -> list:
+    from alphafold2_tpu_torch.data.pdb_io import coords2pdb
+    from alphafold2_tpu_torch.utils.hashing import as_numpy
+
+    def host(name):
+        value = kwargs.get(name)
+        return None if value is None else as_numpy(value)
+
+    seq_np = as_numpy(seq)
+    mask_np, msa_np, msa_mask_np = host("mask"), host("msa"), \
+        host("msa_mask")
+    b = seq_np.shape[0]
+
+    def trim(k):
+        return (slice(None) if mask_np is None
+                else np.flatnonzero(mask_np[k]))
+
+    keys = cached = None
+    if cache is not None:
+        from alphafold2_tpu_torch.cache.keys import fold_key
+        num_recycles = kwargs.get("num_recycles", DEFAULT_NUM_RECYCLES)
+        # every model input beyond the keyed ones must reach the key:
+        # only scalar extras are keyable; an array-valued or unhashable
+        # one disables caching for the call. No extras and an all-True
+        # msa_mask key as the serving path does (extras=None).
+        extra = tuple(sorted(
+            (k, v) for k, v in kwargs.items() if k not in _NOT_KEYED))
+        scalar_ok = all(
+            v is None or isinstance(v, (str, bytes, bool, int, float,
+                                        np.integer, np.floating))
+            for _, v in extra)
+        if scalar_ok:
+            try:
+                with trace.span("cache_lookup", batch=b):
+                    keys, cached = [], []
+                    for k in range(b):
+                        idx = trim(k)
+                        mm = (None if msa_mask_np is None
+                              else msa_mask_np[k][:, idx])
+                        if mm is not None and mm.all():
+                            mm = None
+                        extras = None if not extra and mm is None \
+                            else (extra, mm)
+                        keys.append(fold_key(
+                            seq_np[k][idx],
+                            None if msa_np is None else msa_np[k][:, idx],
+                            num_recycles=num_recycles,
+                            model_tag=model_tag, extras=extras))
+                        cached.append(cache.get(keys[k], trace=trace))
+            except TypeError:
+                # an extra that cannot be content-hashed: fold uncached
+                keys = cached = None
+
+    coords_np = confidence_np = None
+    all_hit = cached is not None and all(c is not None for c in cached)
+    if not all_hit:
+        with trace.span("fold", batch=b):
+            result = fold(model, seq, device=device, **kwargs)
+            coords_np = result.coords.float().cpu().numpy()
+            confidence_np = result.confidence.float().cpu().numpy()
+
+    stem, ext = os.path.splitext(out_path)
+    ext = ext or ".pdb"
+    paths = []
+    with trace.span("write", batch=b):
+        for k in range(b):
+            path = out_path if b == 1 else f"{stem}_{k}{ext}"
+            idx = trim(k)
+            if cached is not None and cached[k] is not None:
+                coords_k = cached[k].coords
+            else:
+                coords_k = coords_np[k][idx]
+                if keys is not None:
+                    cache.put(keys[k], coords_k, confidence_np[k][idx])
+            paths.append(coords2pdb(seq_np[k][idx], coords_k, name=path))
+    trace.finish("ok", source="cache" if all_hit else "fold")
+    return paths

@@ -1,7 +1,7 @@
-"""Metrics logging (a copy of `alphafold2_tpu/utils/logging.py`, with
-the two record conventions it takes from `alphafold2_tpu/obs/export.py`):
+"""Metrics logging (counterpart of `alphafold2_tpu/utils/logging.py`):
 structured scalar logging to stdout and/or a JSONL file, the `logger=`
-of `train.fit`.
+of `train.fit`. The record conventions (`SCHEMA_VERSION`, `flatten`)
+come from `obs/export.py`, imported at call time (obs imports utils).
 """
 
 from __future__ import annotations
@@ -11,26 +11,6 @@ import os
 import sys
 import time
 from typing import IO, Optional
-
-# every JSONL record carries the observability schema version (the JAX
-# package's `obs/export.py` convention)
-SCHEMA_VERSION = 1
-
-
-def flatten(mapping: dict, sep: str = ".", prefix: str = "") -> dict:
-    """Flatten arbitrarily nested dicts to `sep`-joined keys.
-
-    {"cache": {"disk": {"hits": 3}}} -> {"cache.disk.hits": 3}. Non-dict
-    values pass through unchanged; insertion order is preserved
-    depth-first, matching the nesting's reading order."""
-    out = {}
-    for k, v in mapping.items():
-        key = f"{prefix}{sep}{k}" if prefix else str(k)
-        if isinstance(v, dict):
-            out.update(flatten(v, sep=sep, prefix=key))
-        else:
-            out[key] = v
-    return out
 
 
 class MetricsLogger:
@@ -65,6 +45,8 @@ class MetricsLogger:
         return cls._scalar(v)
 
     def log(self, step: int, **scalars):
+        from alphafold2_tpu_torch.obs.export import SCHEMA_VERSION, flatten
+
         record = {"schema": SCHEMA_VERSION, "step": int(step),
                   "wall_s": round(time.time() - self._t0, 3)}
         for k, v in scalars.items():

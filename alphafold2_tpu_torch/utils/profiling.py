@@ -5,6 +5,10 @@
 - `StepTimer`: wall-clock step durations with mean/p50/p90/p99/min. The
   card runs asynchronously, so `stop()` synchronises the CUDA device
   before it reads the clock: a step's time includes its kernels.
+- `trace`: a `torch.profiler` scope that writes a trace directory
+  TensorBoard's profiler plugin loads (the CPU's activities, and the
+  card's when one is in use);
+- `annotate`: a named range that shows up in the profiler's timeline.
 """
 
 from __future__ import annotations
@@ -89,3 +93,25 @@ class StepTimer:
         return {"count": self.count, "mean_s": self.mean,
                 "p50_s": self.p50, "p90_s": self.p90, "p99_s": self.p99,
                 "best_s": self.best}
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the scope into `log_dir`: one `*.pt.trace.json` that
+    TensorBoard's profiler plugin (or chrome://tracing) loads. The card's
+    kernels are traced when CUDA is available."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir))
+    prof.start()
+    try:
+        yield prof
+    finally:
+        synchronize()
+        prof.stop()
+
+
+annotate = torch.profiler.record_function

@@ -24,7 +24,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    block-128 one, plus one call at the default scale), then at the
    tensor-core tile's edge cases (ragged and odd lengths, every head
    width, replayed bias, fully masked rows, every bf16 layout of K1,
-   every K2 block size, live keys all masked, other scales);
+   every K2 block size, live keys all masked, other scales), and at the
+   widths and blocks without a kernel instance: K1 at D = 8, 48 and 96
+   (zero-padded to the next instance), K2 at block 48 (re-planned at
+   16) and block 24 (K1 with the pattern as a bias), each launch counted
+   on the kernel that ran; and a padded D=48 launch timed beside D=64 at
+   the triangle shape;
 4. time: each kernel (CUDA events over a run of launches, and device
    time per launch from torch.profiler), its plain version and one
    PyTorch library call computing the same function (a yardstick the
@@ -44,6 +49,19 @@ Phases, each of which fails the run (nonzero exit, no result line):
    recycles; each fold must launch every kernel of the path;
 7. profile: torch.profiler over one more fold, device time by kernel,
    and the card's busy share of an unprofiled fold's wall time;
+7a. fold-and-write: the same model through `predict.fold_and_write` with
+   a disk `cache.FoldCache` and an `obs.Tracer` (JSONL sink) in a
+   temporary directory: requests of 200 and 131 residues padded to the
+   256 bucket, folded as one batch of two, 5 MSA rows, 3 recycles. The
+   miss folds once (96 K1 launches) and writes one PDB per element,
+   whose CA trace `data.native.parse_pdb` reads back within 1e-3 A of
+   the fold's coordinates; the hit launches nothing, writes the same
+   bytes and is traced with source "cache". Miss wall, hit wall, write
+   ms and the cache's bytes;
+7b. step-snapshot: `fold_init`, `snapshot_step_state`,
+   `restore_step_state` (byte-equal, on the same card), then 3
+   `fold_step`s from the restored carry against 3 from the original:
+   the largest coordinate gap (0 expected on one card);
 8. fold-full: the same model folds the same three lengths through
    `predict.fold` with the full model's inputs: t=4 templates
    (templates_dim 32, 55 angle features; one missing, one partial),
@@ -95,6 +113,7 @@ one card in one call.
 """
 
 import argparse
+import itertools
 import json
 import os
 import re
@@ -348,6 +367,14 @@ K1_EDGES = [(5, 5, 64, 8, 3, False), (131, 131, 32, 2, 2, True),
             (17, 5, 64, 4, 2, False), (64, 7, 16, 2, 3, True)]
 K2_EDGES = [(16, 16, 1.0), (32, 128, 0.37), (64, 32, 1.0),
             (128, 64, 0.125), (128, 128, 1.0), (32, 64, 2.0)]
+# widths and blocks with no kernel instance, and the route each takes
+# on the card: K1 at these head widths (zero-padded to 16, 64, 128);
+# K2 at block 48 (re-planned at 16) and block 24 (K1, pattern as bias)
+K1_PADDED_WIDTHS = (8, 48, 96)
+# the padding token ('_', the last of the 21), which a PDB leaves out
+NUM_TOKENS_PAD = 20
+ROUTED_BLOCKS = ((48, "block_sparse_attention (K2, re-planned at 16)"),
+                 (24, "fused_attention (K1, pattern as bias)"))
 
 
 def phase_check_edges():
@@ -428,7 +455,100 @@ def phase_check_edges():
                                      f"{dtype}: max abs err {err}")
             key = ("block_sparse", dtype)
             worst[key] = max(worst.get(key, 0.0), err)
+        check_routes(dtype, worst)
+    worst["padded_width_ms"] = time_padded_width()
     return worst
+
+
+def check_routes(dtype, worst):
+    """K1 at the padded head widths and K2 at the routed blocks, through
+    their public wrappers, against the plain versions in fp32 on the
+    same values; each call must add one launch to the counter of the
+    kernel that its route names."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    dev = torch.device("cuda")
+    tol = TOLERANCE[dtype]
+    heads, rep = 2, 2
+    for d in K1_PADDED_WIDTHS:
+        n = 131
+        g = torch.Generator().manual_seed(d)
+        q, k = (torch.randn(heads * rep, n, d, generator=g) * 0.5
+                for _ in range(2))
+        v = torch.randn(heads * rep, n, d, generator=g)
+        bias = torch.randn(heads, n, n, generator=g).to(dev)
+        qm = (torch.arange(n)[None] < torch.randint(
+            n // 2, n + 1, (rep, 1), generator=g)).to(dev)
+        args = [t.to(dev, dtype) for t in (q, k, v)]
+        before = attn.launch_count.value
+        out = attn.fused_attention(*args, bias, qm, qm, heads=heads,
+                                   bias_repeat=rep)
+        torch.cuda.synchronize()
+        launches = attn.launch_count.value - before
+        ref = attn.attention_reference(*(t.float() for t in args), bias, qm,
+                                       qm, heads=heads, bias_repeat=rep)
+        err = float((out.float() - ref).abs().max())
+        log(f"check fused_attention padded D={d} -> "
+            f"{attn.kernel_head_dim(d)} N={n} {str(dtype)[6:]}: max abs err "
+            f"{err:.3e} (tolerance {tol:.0e}), K1 launches {launches}")
+        if not err <= tol or launches != 1 or out.shape[-1] != d:
+            raise AssertionError(f"fused_attention padded D={d} {dtype}: "
+                                 f"err {err}, launches {launches}")
+        key = ("fused_attention", dtype)
+        worst[key] = max(worst.get(key, 0.0), err)
+    n, d = 192, 40
+    for (block, route), band_only in itertools.product(ROUTED_BLOCKS,
+                                                       (False, True)):
+        counter = bs.launch_count if "K2" in route else attn.launch_count
+        g = torch.Generator().manual_seed(block)
+        q, k = (torch.randn(heads * rep, n, d, generator=g) * 0.5
+                for _ in range(2))
+        v = torch.randn(heads * rep, n, d, generator=g)
+        bias = torch.randn(heads, n, n, generator=g).to(dev)
+        nb = n // block
+        lengths = torch.randint(n // 2, n + 1, (rep, 1), generator=g)
+        if band_only:
+            # no global block, and mask row 0 masks every live key of the
+            # last q-block: that row averages over its live keys only
+            lengths[0] = (nb - 2) * block
+        km = (torch.arange(n)[None] < lengths).to(dev)
+        plan = bs.BlockPlan.build(
+            bs.banded_block_pattern(nb, 1, 0 if band_only else 1), block, dev)
+        kw = dict(bias=bias, bias_repeat=rep, k_mask=km, heads=heads)
+        args = [t.to(dev, dtype) for t in (q, k, v)]
+        before = (attn.launch_count.value, bs.launch_count.value)
+        out = bs.block_sparse_attention(*args, plan, **kw)
+        torch.cuda.synchronize()
+        launches = (attn.launch_count.value - before[0],
+                    bs.launch_count.value - before[1])
+        ref = bs.block_sparse_reference(*(t.float() for t in args), plan,
+                                        **kw)
+        err = float((out.float() - ref).abs().max())
+        log(f"check block_sparse block={block} D={d} "
+            f"{'band only, one row shut' if band_only else 'band+global'} "
+            f"via {route} {str(dtype)[6:]}: max abs err {err:.3e} (tolerance "
+            f"{tol:.0e}), K1 / K2 launches {launches}")
+        expected = (0, 1) if counter is bs.launch_count else (1, 0)
+        if not err <= tol or launches != expected:
+            raise AssertionError(f"block_sparse block {block} {dtype}: err "
+                                 f"{err}, launches {launches}")
+        key = ("block_sparse", dtype)
+        worst[key] = max(worst.get(key, 0.0), err)
+
+
+def time_padded_width():
+    """K1 at the triangle shape (bf16, heads 8) with D=48, padded to 64
+    by the wrapper, beside the same launch at D=64 (CUDA events)."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    kw = attention_inputs("triangle", torch.bfloat16, torch.device("cuda"),
+                          SEED)
+    narrow = dict(kw, **{x: kw[x][..., :48].contiguous()
+                         for x in ("q", "k", "v")})
+    ms = {d: cuda_ms(lambda a=a: attn.fused_attention(**a), 20)
+          for d, a in ((64, kw), (48, narrow))}
+    log(f"time fused_attention triangle bf16: D=48 (padded to 64) "
+        f"{ms[48]:.4f} ms, D=64 {ms[64]:.4f} ms per launch")
+    return ms
 
 
 def device_ms(fn, iters):
@@ -897,6 +1017,134 @@ def phase_serve():
         launches += count
         times.append(seconds)
     return launches, times, model, cfg, req
+
+
+def phase_fold_and_write(model):
+    """`predict.fold_and_write` through a disk FoldCache and a Tracer: a
+    miss (one fold of the batch of two, 96 K1 launches, PDBs that parse
+    back to the fold's CA coords within 1e-3 A), then a hit (no launch,
+    the same PDB bytes, source "cache"). Returns the numbers it printed."""
+    import tempfile
+
+    from alphafold2_tpu_torch.cache import FoldCache, fold_key
+    from alphafold2_tpu_torch.data.native import parse_pdb
+    from alphafold2_tpu_torch.data.synthetic import pad_to, synthetic_batch
+    from alphafold2_tpu_torch.obs import Tracer
+    from alphafold2_tpu_torch.predict import fold_and_write
+    rng = np.random.default_rng(SEED + 5)
+    lengths = LENGTHS[1:]
+    reqs = [synthetic_batch(rng, seq_len=n, msa_depth=MSA_ROWS,
+                            with_coords=False) for n in lengths]
+    batch = {key: torch.cat([pad_to(r[key], BUCKET, axis=r[key].dim() - 1)
+                             for r in reqs]) for key in reqs[0]}
+    # four K1 attentions a trunk layer and pass, one fold of the batch
+    expected = 4 * len(model.net.layers) * (NUM_RECYCLES + 1)
+    tag = f"chip_smoke-seed{SEED}"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = FoldCache(disk_dir=os.path.join(tmp, "cache"))
+        trace_path = os.path.join(tmp, "traces.jsonl")
+        tracer = Tracer(jsonl_path=trace_path)
+        runs = []
+        for call in ("miss", "hit"):
+            paths, k2, k1, seconds, _ = count_fold(lambda: fold_and_write(
+                model, batch["seq"], os.path.join(tmp, f"{call}.pdb"),
+                cache=cache, model_tag=tag, tracer=tracer,
+                msa=batch["msa"], mask=batch["mask"],
+                msa_mask=batch["msa_mask"], num_recycles=NUM_RECYCLES))
+            runs.append((paths, k1, k2, seconds))
+        tracer.close()
+        stats = {k: v for k, v in cache.snapshot().items()
+                 if k in ("hits", "misses", "puts")}
+        with open(trace_path) as fh:
+            records = [json.loads(line) for line in fh]
+        (miss, k1_miss, k2_miss, miss_s), (hit, k1_hit, k2_hit, hit_s) = runs
+        if (k1_miss, k2_miss, k1_hit, k2_hit) != (expected, 0, 0, 0):
+            raise AssertionError(
+                f"fold_and_write launches: miss K1 {k1_miss} K2 {k2_miss}, "
+                f"hit K1 {k1_hit} K2 {k2_hit}; expected {expected} / 0")
+        if [r["source"] for r in records] != ["fold", "cache"] or \
+                [r["status"] for r in records] != ["ok", "ok"]:
+            raise AssertionError(f"fold_and_write traces {records}")
+        gap = 0.0
+        for k, (a, b) in enumerate(zip(miss, hit)):
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                text = fa.read()
+                if text != fb.read():
+                    raise AssertionError(f"hit PDB {b} differs from {a}")
+            valid = batch["mask"][k].numpy()
+            seq = batch["seq"][k].numpy()[valid]
+            entry = cache.get(fold_key(
+                seq, batch["msa"][k].numpy()[:, valid],
+                num_recycles=NUM_RECYCLES, model_tag=tag))
+            # the PDB has a residue for every token but the padding one
+            written = entry.coords[seq != NUM_TOKENS_PAD]
+            _, coords, _ = parse_pdb(text.decode())
+            if coords.shape[0] != len(written) or \
+                    not np.isfinite(entry.coords).all():
+                raise AssertionError(f"PDB {a}: {coords.shape[0]} residues, "
+                                     f"expected {len(written)}")
+            gap = max(gap, float(np.abs(coords[:, 1] - written).max()))
+        if not gap <= 1e-3:
+            raise AssertionError(f"PDB CA coords {gap} A from the fold's")
+        write_ms = [s["dur_s"] * 1e3 for r in records for s in r["spans"]
+                    if s["name"] == "write"]
+        disk_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, files in os.walk(os.path.join(tmp,
+                                                                 "cache"))
+                         for f in files)
+        out = {"miss_ms": miss_s * 1e3, "hit_ms": hit_s * 1e3,
+               "write_ms": write_ms, "k1_launches_miss": k1_miss,
+               "k1_launches_hit": k1_hit, "pdb_ca_gap_A": gap,
+               "cache_disk_bytes": disk_bytes,
+               "cache_memory_bytes": cache.bytes_resident,
+               "cache": stats}
+    log(f"fold-and-write batch {list(lengths)} (bucket {BUCKET}): miss "
+        f"{out['miss_ms']:.1f} ms wall ({k1_miss} K1 launches), hit "
+        f"{out['hit_ms']:.1f} ms wall ({k1_hit}), write spans "
+        f"{[round(w, 3) for w in write_ms]} ms, PDB CA gap {gap:.2e} A, "
+        f"cache {disk_bytes} bytes on disk / {cache.bytes_resident} in "
+        f"memory, {out['cache']}")
+    return out
+
+
+def phase_step_snapshot(model, req):
+    """fold_init, a host snapshot of the carry and its restore (byte-equal,
+    on the same card), then 3 fold_steps from the restored carry against
+    3 from the original. Returns the largest coordinate gap."""
+    from alphafold2_tpu_torch.predict import (fold_init, fold_step,
+                                              restore_step_state,
+                                              snapshot_step_state,
+                                              tree_flatten)
+    inputs = dict(msa=req["msa"], mask=req["mask"], msa_mask=req["msa_mask"])
+    state = fold_init(model, req["seq"], **inputs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = snapshot_step_state(state)
+    t1 = time.perf_counter()
+    restored = restore_step_state(snap)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for a, b in zip(tree_flatten(restored)[0], tree_flatten(state)[0]):
+        if a.device != b.device or a.dtype != b.dtype or \
+                not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+            raise AssertionError(f"restored leaf {tuple(a.shape)} on "
+                                 f"{a.device} differs from {b.device}")
+    runs = []
+    for carry in (state, restored):
+        for _ in range(NUM_RECYCLES):
+            carry = fold_step(model, req["seq"], carry.recyclables, **inputs)
+        runs.append(carry.coords)
+    gap = float((runs[0] - runs[1]).abs().max())
+    nbytes = sum(val.nbytes for kind, val, _ in snap[1] if kind == "dev")
+    log(f"step-snapshot: {len(snap[1])} leaves, {nbytes} bytes, snapshot "
+        f"{(t1 - t0) * 1e3:.2f} ms, restore {(t2 - t1) * 1e3:.2f} ms, "
+        f"restored on {restored.coords.device}; coords after "
+        f"{NUM_RECYCLES} steps differ by {gap:.3e} from the uninterrupted "
+        f"loop")
+    if not gap <= 1e-3:
+        raise AssertionError(f"resumed coords differ by {gap}")
+    return gap
 
 
 def phase_profile(run, title, unprofiled=5):
@@ -1420,6 +1668,8 @@ def main(argv=None):
     run("profile", phase_profile,
         lambda: fold(model, **req, num_recycles=NUM_RECYCLES),
         f"fold {LENGTHS[-1]} residues, bucket {BUCKET}")
+    faw = run("fold-and-write", phase_fold_and_write, model)
+    snapshot_gap = run("step-snapshot", phase_step_snapshot, model, req)
     full_launches, full_walls, full_peaks, full_req, feats = run(
         "fold-full", phase_fold_full, model)
     busy, _, table = run(
@@ -1453,6 +1703,12 @@ def main(argv=None):
         "launches_per_fold": launches // len(LENGTHS),
         "launches_per_fold_512": k1_sparse // len(SPARSE_LENGTHS),
         "launches_per_fold_full": full_launches // len(LENGTHS),
+        "launches_fold_and_write_miss": faw["k1_launches_miss"],
+        "launches_fold_and_write_hit": faw["k1_launches_hit"],
+        "fold_and_write": faw,
+        "step_snapshot_coords_gap": snapshot_gap,
+        "padded_d48_ms": edges["padded_width_ms"][48],
+        "d64_ms": edges["padded_width_ms"][64],
         "fold_full_wall_ms": full_walls,
         "fold_full_peak_gib": max(full_peaks) / 2**30,
         "fold_full_k1_device_ms": k1_full_ms,

@@ -20,7 +20,8 @@ from alphafold2_tpu.ops import block_sparse as jax_bs
 from alphafold2_tpu.ops.attention import attention_reference as jax_attn_ref
 from alphafold2_tpu_torch.model import primitives as pt_prim
 from alphafold2_tpu_torch.ops import block_sparse as pt_bs
-from alphafold2_tpu_torch.ops.attention import attention_reference
+from alphafold2_tpu_torch.ops.attention import (attention_reference,
+                                                kernel_head_dim)
 
 ATOL = 1e-5
 
@@ -269,3 +270,69 @@ def test_attention_seam_routes_by_spec(monkeypatch):
                                        atol=0)
             row(torch.randn(1, 3, 8, dim))    # another length: dense
     assert len(calls) == 1
+
+
+def live_pattern(plan):
+    """The live set a plan's cols/counts describe, at its kernel block."""
+    rows = plan.cols.shape[0]
+    pattern = np.zeros((rows, rows), bool)
+    for i, (cols, count) in enumerate(zip(plan.cols.numpy(),
+                                          plan.counts.numpy())):
+        pattern[i, cols[:count]] = True
+    return pattern
+
+
+@pytest.mark.parametrize("band_only", [False, True],
+                         ids=["global", "band_only"])
+@pytest.mark.parametrize("block,d", [(48, 16), (48, 40), (96, 64),
+                                     (24, 16), (24, 40), (32, 40)])
+def test_card_routes_are_exact_with_the_plain_standing_in(block, d,
+                                                          band_only,
+                                                          monkeypatch):
+    """The card's routes for blocks and head widths without a K2
+    instance, with the plain version standing in for K2: a block that is
+    a multiple of 16 re-plans at a K2 block over the same live set; any
+    other block runs K1 (here its plain version) with the pattern as a
+    -1e9 bias; D is padded to the next instance. Every route equals the
+    plain block-sparse version on the original plan. `band_only` drops
+    the global block and masks every live key of the last q-block in
+    one mask row, so that row averages over its live keys only."""
+    rng = np.random.default_rng(block + d)
+    heads, rep, n = 2, 2, 192
+    b = heads * rep
+    nb = n // block
+    pattern = pt_bs.banded_block_pattern(nb, 1, 0 if band_only else 1)
+    plan = pt_bs.BlockPlan.build(pattern, block, "cpu")
+    assert plan.kernel_block == {48: 16, 96: 32, 24: 0, 32: 32}[block]
+    q, k, v = (t(rng.normal(size=(b, n, d)).astype(np.float32))
+               for _ in range(3))
+    bias = t(rng.normal(size=(heads, n, n)).astype(np.float32))
+    lengths = rng.integers(100, n, (b // heads, 1))
+    if band_only:
+        lengths[0] = (nb - 2) * block
+    k_mask = t(np.arange(n)[None] < lengths)
+    seen = []
+
+    def k2_stand_in(q, k, v, plan, **kw):
+        seen.append((q.shape[-1], plan.kernel_block))
+        sub = pt_bs.BlockPlan.build(live_pattern(plan), plan.kernel_block,
+                                    "cpu")
+        return pt_bs.block_sparse_reference(q, k, v, sub, **kw)
+
+    monkeypatch.setattr(pt_bs, "_launch", k2_stand_in)
+
+    for with_bias in (True, False):
+        kw = dict(bias=bias if with_bias else None,
+                  bias_repeat=rep if with_bias else 1, k_mask=k_mask,
+                  heads=heads, scale=0.25)
+        ref = pt_bs.block_sparse_reference(q, k, v, plan, **kw)
+        out = pt_bs.kernel_route(q, k, v, plan, **kw)
+        assert out.shape == ref.shape
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+    if plan.kernel_block:
+        assert seen == [(kernel_head_dim(d), plan.kernel_block)] * 2
+        np.testing.assert_array_equal(
+            pt_bs.token_mask(live_pattern(plan), plan.kernel_block),
+            pt_bs.token_mask(pattern, block))
+    else:
+        assert not seen and plan.bias.shape == (n, n)

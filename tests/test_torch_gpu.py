@@ -7,6 +7,9 @@ It also holds the attention cases that tests/test_torch_ops.py holds
 against the JAX package on the CPU.
 """
 
+import itertools
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -341,16 +344,16 @@ def test_block_sparse_kernel_edge_cases(cuda_device, dtype):
 
 @pytest.mark.gpu
 def test_block_sparse_kernel_refuses_misfits(cuda_device):
-    """On the card there is no fallback: a shape or type the kernel does
-    not take raises before any launch."""
+    """On the card there is no fallback: a shape or type the kernels do
+    not take raises before any launch (a head width below 128 is padded
+    to an instance, so the misfit width is one above 128)."""
     from alphafold2_tpu_torch.ops import block_sparse as pt_bs
     q, k, v, plan, kw = block_sparse_case("small", torch.float32,
                                           cuda_device)
     before = pt_bs.launch_count.value
-    with pytest.raises(ValueError, match="head width"):
-        pt_bs.block_sparse_attention(q[..., :8].contiguous(),
-                                     k[..., :8].contiguous(),
-                                     v[..., :8].contiguous(), plan, **kw)
+    with pytest.raises(ValueError, match="head width 144"):
+        pt_bs.block_sparse_attention(q.repeat(1, 1, 9), k.repeat(1, 1, 9),
+                                     v.repeat(1, 1, 9), plan, **kw)
     with pytest.raises(TypeError):
         pt_bs.block_sparse_attention(q.half(), k.half(), v.half(), plan,
                                      **kw)
@@ -506,3 +509,107 @@ def test_adam_leaves_unreached_parameters_bit_equal(cuda_device):
         for a, b in zip(zeros.params + zeros.tensors(),
                         skips.params + skips.tensors()):
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernels_at_routed_widths_and_blocks(cuda_device, dtype):
+    """The widths and blocks without a kernel instance, on the card: K1
+    at D = 8, 48, 96 (zero-padded to 16, 64, 128), K2 at block 48
+    (re-planned at 16) and block 24 (K1 with the pattern as a bias),
+    with and without a q-block whose live keys are all masked, each
+    against its plain version at 1e-4 fp32, 2e-2 bf16, each launch
+    counted on the kernel that ran."""
+    from alphafold2_tpu_torch.ops import block_sparse as pt_bs
+    dt = getattr(torch, dtype)
+    atol = 1e-4 if dt == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(5)
+    heads, n = 2, 96
+    for d in (8, 48, 96):
+        q, k, v = (torch.randn(4, n, d, generator=g) * 0.5 for _ in range(3))
+        km = torch.rand(2, n, generator=g) > 0.2
+        args = [x.to(cuda_device, dt) for x in (q, k, v)]
+        before = pt_attn.launch_count.value
+        out = pt_attn.fused_attention(*args, k_mask=km.to(cuda_device),
+                                      heads=heads)
+        torch.cuda.synchronize()
+        assert pt_attn.launch_count.value == before + 1
+        ref = pt_attn.attention_reference(*(x.float() for x in args),
+                                          k_mask=km.to(cuda_device),
+                                          heads=heads)
+        assert out.shape == ref.shape
+        assert float((out.float() - ref).abs().max()) <= atol, d
+    n = 192
+    for (block, d, counter), band_only in itertools.product(
+            ((48, 40, pt_bs.launch_count), (24, 64, pt_attn.launch_count)),
+            (False, True)):
+        # band_only: no global block, and mask row 0 masks every live
+        # key of the last q-block, which then averages over its live keys
+        nb = n // block
+        plan = pt_bs.BlockPlan.build(
+            pt_bs.banded_block_pattern(nb, 1, 0 if band_only else 1),
+            block, cuda_device)
+        q, k, v = (torch.randn(4, n, d, generator=g) * 0.5 for _ in range(3))
+        bias = torch.randn(heads, n, n, generator=g).to(cuda_device)
+        lengths = torch.tensor([[(nb - 2) * block if band_only else 150],
+                                [150]])
+        km = (torch.arange(n)[None] < lengths).to(cuda_device)
+        args = [x.to(cuda_device, dt) for x in (q, k, v)]
+        kw = dict(bias=bias, bias_repeat=2, k_mask=km.contiguous(),
+                  heads=heads, scale=None)
+        before = counter.value
+        with torch.no_grad():
+            out = pt_bs.block_sparse_attention(*args, plan, **kw)
+        torch.cuda.synchronize()
+        assert counter.value == before + 1
+        ref = pt_bs.block_sparse_reference(*(x.float() for x in args), plan,
+                                           **kw)
+        assert float((out.float() - ref).abs().max()) <= atol, (block,
+                                                                band_only)
+    with pytest.raises(ValueError, match="head width 256"):
+        x = torch.zeros(2, 8, 256, device=cuda_device, dtype=dt)
+        pt_attn.fused_attention(x, x, x)
+
+
+@pytest.mark.gpu
+def test_cuda_fold_and_write_miss_then_hit(cuda_device, tmp_path):
+    """fold_and_write on the card through a disk FoldCache: the miss
+    launches K1 (4 a layer and pass) and writes PDBs whose CA trace
+    parses back to the fold's coordinates within 1e-3 A; the hit
+    launches nothing and writes the same bytes, traced as a cache hit."""
+    from alphafold2_tpu_torch import Alphafold2
+    from alphafold2_tpu_torch.cache import FoldCache, fold_key
+    from alphafold2_tpu_torch.data.native import parse_pdb
+    from alphafold2_tpu_torch.obs import Tracer
+    from alphafold2_tpu_torch.predict import fold_and_write
+
+    model = Alphafold2(dim=32, depth=2, heads=2, dim_head=16,
+                       predict_coords=True,
+                       generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    mask = np.arange(24)[None] < np.array([[24], [17]])
+    kw = dict(msa=rng.integers(0, 21, (2, 3, 24)), mask=mask,
+              msa_mask=np.broadcast_to(mask[:, None], (2, 3, 24)).copy(),
+              num_recycles=1)
+    seq = rng.integers(0, 20, (2, 24))
+    cache = FoldCache(disk_dir=str(tmp_path / "cache"))
+    tracer = Tracer(jsonl_path=str(tmp_path / "t.jsonl"))
+    runs = []
+    for tag in ("miss", "hit"):
+        pt_attn.launch_count.reset()
+        paths = fold_and_write(model, seq, str(tmp_path / f"{tag}.pdb"),
+                               cache=cache, tracer=tracer, **kw)
+        torch.cuda.synchronize()
+        runs.append((pt_attn.launch_count.value, paths))
+    tracer.close()
+    assert [r[0] for r in runs] == [4 * 2 * 2, 0]
+    records = [json.loads(line) for line in open(tmp_path / "t.jsonl")]
+    assert [r["source"] for r in records] == ["fold", "cache"]
+    for k, (miss, hit) in enumerate(zip(runs[0][1], runs[1][1])):
+        with open(miss, "rb") as a, open(hit, "rb") as b:
+            assert a.read() == b.read()
+        valid = mask[k]
+        entry = cache.get(fold_key(seq[k][valid], kw["msa"][k][:, valid],
+                                   num_recycles=1))
+        _, coords, _ = parse_pdb(open(miss).read())
+        assert np.abs(coords[:, 1] - entry.coords).max() <= 1e-3

@@ -359,6 +359,30 @@ def test_unported_options_raise(case):
                               device="cpu")
 
 
+def test_structure_module_dim_head_is_accepted_and_unread():
+    """The JAX model takes structure_module_dim_head and never reads it;
+    the port builds the same modules whatever its value."""
+    assert "structure_module_dim_head" in \
+        jax_af2.Alphafold2.__dataclass_fields__
+    ref = pt_af2.Alphafold2(**MODEL_KW, device="cpu")
+    pm = pt_af2.Alphafold2(**dict(MODEL_KW, structure_module_dim_head=32),
+                           device="cpu")
+    assert {k: v.shape for k, v in pm.state_dict().items()} == \
+        {k: v.shape for k, v in ref.state_dict().items()}
+
+
+@pytest.mark.parametrize("field,value", [
+    ("conv_seq_kernels", ((3, 3),)), ("conv_msa_kernels", ((1, 3),)),
+    ("conv_dilations", (1, 2))])
+def test_conv_fields_raise_naming_item_11(field, value):
+    """The use_conv menu's fields raise NotImplementedError naming item
+    11 unless they hold the JAX default."""
+    with pytest.raises(NotImplementedError, match="item 11"):
+        pt_af2.Alphafold2(**dict(MODEL_KW, **{field: value}), device="cpu")
+    default = jax_af2.Alphafold2.__dataclass_fields__[field].default
+    pt_af2.Alphafold2(**dict(MODEL_KW, **{field: default}), device="cpu")
+
+
 def test_default_device_raises_without_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device works")
@@ -392,7 +416,22 @@ def test_port_imports_no_jax():
                     "alphafold2_tpu_torch/utils/flops.py",
                     "alphafold2_tpu_torch/scripts/train_distogram.py",
                     "alphafold2_tpu_torch/core/geometry.py",
-                    "alphafold2_tpu_torch/train_wall.py"):
+                    "alphafold2_tpu_torch/train_wall.py",
+                    "alphafold2_tpu_torch/utils/hashing.py",
+                    "alphafold2_tpu_torch/data/featurize.py",
+                    "alphafold2_tpu_torch/data/native.py",
+                    "alphafold2_tpu_torch/data/pdb_io.py",
+                    "alphafold2_tpu_torch/obs/export.py",
+                    "alphafold2_tpu_torch/obs/trace.py",
+                    "alphafold2_tpu_torch/utils/profiling.py",
+                    "alphafold2_tpu_torch/cache/bytestore.py",
+                    "alphafold2_tpu_torch/cache/keys.py",
+                    "alphafold2_tpu_torch/cache/store.py",
+                    "alphafold2_tpu_torch/cache/coalesce.py",
+                    "alphafold2_tpu_torch/cache/features.py",
+                    "alphafold2_tpu_torch/cache/checkpoints.py",
+                    "alphafold2_tpu_torch/fleet/object_store.py",
+                    "alphafold2_tpu_torch/scripts/fold_synthetic.py"):
         assert covered in names, covered
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert not bad, bad

@@ -184,3 +184,46 @@ def test_build_hash_covers_the_headers(tmp_path, monkeypatch):
     header.write_text("// v1\n")
     (csrc / "other.cuh").unlink()
     assert build.library_path("kernel") == first
+
+
+@pytest.mark.parametrize("d", [8, 48, 96])
+def test_head_width_pad_is_exact_with_the_plain_standing_in(d):
+    """The card's route for a head width without a kernel instance:
+    q/k/v zero-padded to the next instance, launched, sliced back. With
+    the plain version standing in for the kernel, the output and the
+    gradients equal the unpadded plain version's exactly."""
+    rng = np.random.default_rng(40 + d)
+    b, heads, n = 4, 2, 12
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, n, d))
+                                .astype(np.float32)).requires_grad_()
+               for _ in range(3))
+    bias = torch.from_numpy(rng.normal(size=(b, n, n)).astype(np.float32))
+    qm = torch.from_numpy(rng.random((b // heads, n)) > 0.2)
+    km = torch.from_numpy(rng.random((b // heads, n)) > 0.2)
+    widths = []
+
+    def stand_in(q, k, v, *args, **kw):
+        widths.append(q.shape[-1])
+        return pt_attn.attention_reference(q, k, v, *args, **kw)
+
+    out = pt_attn.pad_head_dim(stand_in, q, k, v, bias, qm, km, heads=heads)
+    ref = pt_attn.attention_reference(q, k, v, bias, qm, km, heads=heads)
+    assert widths == [pt_attn.kernel_head_dim(d)] and widths[0] > d
+    assert out.shape == ref.shape
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    grads = torch.autograd.grad(out.sum(), (q, k, v))
+    ref_grads = torch.autograd.grad(ref.sum(), (q, k, v))
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-6)
+
+
+def test_head_width_above_128_raises():
+    """D > 128 has no kernel instance: the card's route raises naming the
+    width (ROADMAP queue 3), while the CPU's plain version runs it."""
+    assert [pt_attn.kernel_head_dim(d) for d in (1, 16, 17, 64, 65, 128)] \
+        == [16, 16, 32, 64, 128, 128]
+    for d in (129, 256):
+        with pytest.raises(ValueError, match=f"head width {d}"):
+            pt_attn.kernel_head_dim(d)
+    q = torch.zeros(2, 4, 256)
+    assert pt_attn.fused_attention(q, q, q).shape == (2, 4, 256)

@@ -345,6 +345,50 @@ def test_mask_subset_matches_jax_given_the_same_draws(monkeypatch):
         np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
+def test_mlm_options_reach_the_model_and_noise_as_jax(monkeypatch):
+    """Alphafold2's four mlm_* options reach its MLM (JAX defaults when
+    absent), and a non-default set noises as the JAX MLM does, given the
+    same uniform and token draws."""
+    defaults = pt_af2.Alphafold2(**MODEL_KW, device="cpu").mlm
+    jax_fields = jax_af2.Alphafold2.__dataclass_fields__
+    assert (defaults.mask_prob, defaults.random_replace_token_prob,
+            defaults.keep_token_same_prob, defaults.exclude_token_ids) == \
+        tuple(jax_fields[f"mlm_{name}"].default for name in (
+            "mask_prob", "random_replace_token_prob",
+            "keep_token_same_prob", "exclude_token_ids"))
+    opts = dict(mlm_mask_prob=0.3, mlm_random_replace_token_prob=0.5,
+                mlm_keep_token_same_prob=0.2, mlm_exclude_token_ids=(0, 20))
+    pm = pt_af2.Alphafold2(**MODEL_KW, **opts, device="cpu")
+    jm = jax_af2.Alphafold2(**MODEL_KW, **opts)
+    jax_noise_mlm = jax_mlm.MLM(
+        dim=DIM, num_tokens=constants.NUM_AMINO_ACIDS,
+        mask_id=constants.NUM_AMINO_ACIDS, mask_prob=jm.mlm_mask_prob,
+        random_replace_token_prob=jm.mlm_random_replace_token_prob,
+        keep_token_same_prob=jm.mlm_keep_token_same_prob,
+        exclude_token_ids=jm.mlm_exclude_token_ids)
+    rng = np.random.default_rng(36)
+    b, m, n = 2, 3, 40
+    seq = rng.integers(0, constants.NUM_AMINO_ACIDS, (b, m, n))
+    mask = np.arange(n)[None, None] < rng.integers(20, n + 1, (b, m, 1))
+    draws = [rng.random((b * m, n)).astype(np.float32) for _ in range(2)]
+    tokens = rng.integers(1, constants.NUM_AMINO_ACIDS, (b * m, n))
+    jax_draws, port_draws = iter(draws), iter(draws)
+    monkeypatch.setattr(jax.random, "uniform",
+                        lambda key, shape: jnp.asarray(next(jax_draws)))
+    monkeypatch.setattr(jax.random, "randint",
+                        lambda key, shape, lo, hi: jnp.asarray(tokens))
+    monkeypatch.setattr(pt_mlm, "random_uniform",
+                        lambda shape, generator, like: t(next(port_draws)))
+    monkeypatch.setattr(pt_mlm.torch, "randint",
+                        lambda *a, **kw: t(tokens))
+    ref = jax_noise_mlm.apply({}, jax.random.PRNGKey(0), jnp.asarray(seq),
+                              jnp.asarray(mask), method=jax_mlm.MLM.noise)
+    out = pm.mlm.noise(t(seq), t(mask))
+    for got, want in zip(out, ref):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert out[1].any() and not out[1][t(seq) == 20].any()
+
+
 def test_mlm_loss_head_matches_jax():
     rng = np.random.default_rng(34)
     embed = rng.normal(size=(1, ROWS, N, DIM)).astype(np.float32)

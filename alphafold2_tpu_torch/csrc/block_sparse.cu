@@ -228,6 +228,46 @@ int launch_f32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// One unit's arguments: batch*head row bh, query block qb, queries from
+// q0, key tiles of `tile` inside the live blocks, rows d elements apart.
+template <typename T>
+__device__ __forceinline__ af2tile::TileArgsT<T> unit_args(
+    const T* q, const T* k, const T* v, const float* bias,
+    const uint8_t* k_mask, const int* cols, const int* counts, T* out,
+    int bh, int qb, int q0, int n, int d, int block, int t_max, int heads,
+    int bias_repeat, float scale, int tile) {
+  af2tile::TileArgsT<T> a;
+  a.q = q + (size_t)bh * n * d;
+  a.k = k + (size_t)bh * n * d;
+  a.v = v + (size_t)bh * n * d;
+  a.out = out + (size_t)bh * n * d;
+  a.bias = nullptr;
+  if (bias != nullptr) {
+    const size_t brow = (size_t)(bh / (bias_repeat * heads)) * heads +
+                        bh % heads;
+    a.bias = bias + brow * n * n;
+  }
+  a.q_mask = nullptr;
+  a.k_mask = k_mask == nullptr ? nullptr
+                               : k_mask + (size_t)(bh / heads) * n;
+  a.cols = cols + (size_t)qb * t_max;
+  a.block = block;
+  a.q0 = q0;
+  a.nq = n;
+  a.nk = n;
+  a.num_tiles = counts[qb] * (block / tile);
+  a.scale = scale;
+  return a;
+}
+
+#define AF2_MMA_PARAMS                                                      \
+  const __nv_bfloat16 *__restrict__ q, const __nv_bfloat16 *__restrict__ k, \
+      const __nv_bfloat16 *__restrict__ v, const float *__restrict__ bias,  \
+      const uint8_t *__restrict__ k_mask, const int *__restrict__ cols,     \
+      const int *__restrict__ counts, __nv_bfloat16 *__restrict__ out,      \
+      int units, int n, int block, int t_max, int heads, int bias_repeat,   \
+      float scale, int nqb, int q_parts
+
 // The bf16 kernel: groups of WG warps on the shared tensor-core tile, G
 // groups (each on its own (batch*head, query block, part) unit) per block.
 template <int D, int WG, int G, int BK>
@@ -326,11 +366,125 @@ int dispatch_mma(const void* q, const void* k, const void* v,
 #undef AF2_MMA
 }
 
+// Wide heads (D > 128, a multiple of 128; the sliced path of
+// attention_tile.cuh): one unit per (batch*head, query block, part,
+// output slice). fp32: 16 query rows a block of threads, one thread each,
+// over slices of 64 columns; bf16: the units of dispatch_mma at D = 128
+// over slices of 128 columns.
+__global__ void __launch_bounds__(16)
+block_sparse_sliced_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ bias,
+                           const uint8_t* __restrict__ k_mask,
+                           const int* __restrict__ cols,
+                           const int* __restrict__ counts,
+                           float* __restrict__ out, int n, int d, int block,
+                           int t_max, int heads, int bias_repeat, float scale,
+                           int nqb, int q_parts, int slices) {
+  const int slice = blockIdx.x % slices;
+  const int unit = blockIdx.x / slices;
+  const int row = unit / q_parts;
+  const int qb = row % nqb;
+  const af2tile::TileArgsT<float> a = unit_args(
+      q, k, v, bias, k_mask, cols, counts, out, row / nqb, qb,
+      qb * block + (unit % q_parts) * 16, n, d, block, t_max, heads,
+      bias_repeat, scale, af2tile::kSliceF32BK);
+  af2tile::attend_sliced_f32<16, false>(a, d, slice * af2tile::kSliceF32);
+}
+
+template <int WG, int G, int BK>
+__global__ void __launch_bounds__(WG * G * 32)
+block_sparse_sliced_mma_kernel(AF2_MMA_PARAMS, int d, int slices) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int warp = threadIdx.x / 32;
+  const int group = warp / WG;
+  const int unit = blockIdx.x * G + group;
+  if (unit >= units) return;   // groups never share a barrier
+  const int slice = unit % slices;
+  const int part = unit / slices;
+  const int row = part / q_parts;
+  const int qb = row % nqb;
+  const af2tile::TileArgs a = unit_args(
+      q, k, v, bias, k_mask, cols, counts, out, row / nqb, qb,
+      qb * block + (part % q_parts) * 16 * WG, n, d, block, t_max, heads,
+      bias_repeat, scale, BK);
+  af2tile::attend_sliced<WG, BK, false>(
+      a, d, slice * af2tile::kSlice,
+      smem + group * af2tile::sliced_smem_bytes<WG, BK>(), group, warp % WG,
+      threadIdx.x % 32);
+}
+
+int launch_sliced_f32(const void* q, const void* k, const void* v,
+                      const float* bias, const uint8_t* k_mask,
+                      const int* cols, const int* counts, void* out, int b,
+                      int n, int d, int block, int t_max, int heads,
+                      int bias_repeat, float scale, cudaStream_t stream) {
+  const int nqb = n / block;
+  const int q_parts = block / 16;
+  const int slices = d / af2tile::kSliceF32;
+  const long long blocks = (long long)b * nqb * q_parts * slices;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  block_sparse_sliced_kernel<<<(unsigned)blocks, 16, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), bias, k_mask, cols, counts,
+      static_cast<float*>(out), n, d, block, t_max, heads, bias_repeat,
+      scale, nqb, q_parts, slices);
+  return (int)cudaGetLastError();
+}
+
+template <int WG, int G, int BK>
+int launch_sliced_mma(const void* q, const void* k, const void* v,
+                      const float* bias, const uint8_t* k_mask,
+                      const int* cols, const int* counts, void* out, int b,
+                      int n, int d, int block, int t_max, int heads,
+                      int bias_repeat, float scale, cudaStream_t stream) {
+  constexpr int bytes = G * af2tile::sliced_smem_bytes<WG, BK>();
+  auto kernel = block_sparse_sliced_mma_kernel<WG, G, BK>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int nqb = n / block;
+  const int q_parts = block / (16 * WG);
+  const int slices = d / af2tile::kSlice;
+  const long long units = (long long)b * nqb * q_parts * slices;
+  if (units > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)((units + G - 1) / G), WG * G * 32, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), bias, k_mask, cols, counts,
+      static_cast<__nv_bfloat16*>(out), (int)units, n, block, t_max, heads,
+      bias_repeat, scale, nqb, q_parts, d, slices);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_sliced_mma(const void* q, const void* k, const void* v,
+                        const float* bias, const uint8_t* k_mask,
+                        const int* cols, const int* counts, void* out, int b,
+                        int n, int d, int block, int t_max, int heads,
+                        int bias_repeat, float scale, cudaStream_t stream) {
+#define AF2_SLICED(WG, G, BK)                                               \
+  return launch_sliced_mma<WG, G, BK>(q, k, v, bias, k_mask, cols, counts, \
+                                      out, b, n, d, block, t_max, heads,   \
+                                      bias_repeat, scale, stream)
+  switch (block) {
+    case 16: AF2_SLICED(1, 4, 16);
+    case 32: AF2_SLICED(2, 2, 32);
+    case 64: AF2_SLICED(4, 1, 32);
+    case 128: AF2_SLICED(4, 1, 32);
+    default: return -1;
+  }
+#undef AF2_SLICED
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the
-// tensor-core tile). bias and k_mask may be null; cols and counts are the
-// plan on the device. Returns cudaGetLastError() after the launch (0 on
+// tensor-core tile). d is 16, 32, 64, 128 or a multiple of 128 (the sliced
+// path). bias and k_mask may be null; cols and counts are the plan on the
+// device. Returns cudaGetLastError() after the launch (0 on
 // success), or -1 for a head width, block, shape or dtype the kernel does
 // not take.
 extern "C" int af2_block_sparse_attention(
@@ -341,6 +495,12 @@ extern "C" int af2_block_sparse_attention(
   if (block <= 0 || n % block != 0 || t_max < 1 || heads < 1 || b % heads)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > af2tile::kSlice) {
+    if (d % af2tile::kSlice != 0 || dtype < 0 || dtype > 1) return -1;
+    return (dtype == 0 ? launch_sliced_f32 : dispatch_sliced_mma)(
+        q, k, v, bias, k_mask, cols, counts, out, b, n, d, block, t_max,
+        heads, bias_repeat, scale, s);
+  }
   if (dtype == 0)
     return launch_f32(q, k, v, bias, k_mask, cols, counts, out, b, n, d,
                       block, t_max, heads, bias_repeat, scale, s);

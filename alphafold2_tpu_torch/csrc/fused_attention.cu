@@ -229,6 +229,37 @@ int launch_f32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// One unit's arguments: batch*head row bh, queries from q0, key tiles of
+// `tile`, rows d elements apart.
+template <typename T>
+__device__ __forceinline__ af2tile::TileArgsT<T> unit_args(
+    const T* q, const T* k, const T* v, const float* bias,
+    const uint8_t* q_mask, const uint8_t* k_mask, T* out, int bh, int q0,
+    int nq, int nk, int d, int heads, int bias_repeat, int tile) {
+  const int mrow = bh / heads;
+  af2tile::TileArgsT<T> a;
+  a.q = q + (size_t)bh * nq * d;
+  a.k = k + (size_t)bh * nk * d;
+  a.v = v + (size_t)bh * nk * d;
+  a.out = out + (size_t)bh * nq * d;
+  a.bias = nullptr;
+  if (bias != nullptr) {
+    const size_t brow = (size_t)(bh / (bias_repeat * heads)) * heads +
+                        bh % heads;
+    a.bias = bias + brow * nq * nk;
+  }
+  a.q_mask = q_mask == nullptr ? nullptr : q_mask + (size_t)mrow * nq;
+  a.k_mask = k_mask == nullptr ? nullptr : k_mask + (size_t)mrow * nk;
+  a.cols = nullptr;
+  a.block = 0;
+  a.q0 = q0;
+  a.nq = nq;
+  a.nk = nk;
+  a.num_tiles = (nk + tile - 1) / tile;
+  a.scale = 1.f;
+  return a;
+}
+
 // The bf16 kernels: groups of WG warps on the shared tensor-core tile, G
 // groups (each on its own (batch*head, query tile) unit) per block.
 template <int D, int WG, int G, int BK>
@@ -349,14 +380,126 @@ int dispatch_mma(int layout, const void* q, const void* k, const void* v,
   }
 }
 
+// Wide heads (D > 128, a multiple of 128; the sliced path of
+// attention_tile.cuh): one unit per (batch*head, query tile, output
+// slice). fp32: one thread per query row over slices of 64 columns; bf16:
+// the tensor-core layouts of dispatch_mma over slices of 128 columns.
+template <int BQ>
+__global__ void __launch_bounds__(BQ)
+fused_attention_sliced_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ bias,
+                              const uint8_t* __restrict__ q_mask,
+                              const uint8_t* __restrict__ k_mask,
+                              float* __restrict__ out, int nq, int nk, int d,
+                              int heads, int bias_repeat, int q_tiles,
+                              int slices) {
+  const int slice = blockIdx.x % slices;
+  const int unit = blockIdx.x / slices;
+  const af2tile::TileArgsT<float> a = unit_args(
+      q, k, v, bias, q_mask, k_mask, out, unit / q_tiles,
+      (unit % q_tiles) * BQ, nq, nk, d, heads, bias_repeat,
+      af2tile::kSliceF32BK);
+  af2tile::attend_sliced_f32<BQ, true>(a, d, slice * af2tile::kSliceF32);
+}
+
+int launch_sliced_f32(const void* q, const void* k, const void* v,
+                      const float* bias, const uint8_t* q_mask,
+                      const uint8_t* k_mask, void* out, int b, int nq,
+                      int nk, int d, int heads, int bias_repeat,
+                      cudaStream_t stream) {
+  const int bq = nq <= 32 ? 32 : 64;
+  const int q_tiles = (nq + bq - 1) / bq;
+  const int slices = d / af2tile::kSliceF32;
+  const long long blocks = (long long)b * q_tiles * slices;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+#define AF2_SLICED_F32(BQ)                                                    \
+  fused_attention_sliced_kernel<BQ><<<(unsigned)blocks, BQ, 0, stream>>>(    \
+      static_cast<const float*>(q), static_cast<const float*>(k),          \
+      static_cast<const float*>(v), bias, q_mask, k_mask,                  \
+      static_cast<float*>(out), nq, nk, d, heads, bias_repeat, q_tiles,    \
+      slices)
+  if (bq == 32) AF2_SLICED_F32(32);
+  else AF2_SLICED_F32(64);
+#undef AF2_SLICED_F32
+  return (int)cudaGetLastError();
+}
+
+template <int WG, int G, int BK>
+__global__ void __launch_bounds__(WG * G * 32)
+fused_attention_sliced_mma_kernel(AF2_MMA_PARAMS, int d, int slices) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int warp = threadIdx.x / 32;
+  const int group = warp / WG;
+  const int unit = blockIdx.x * G + group;
+  if (unit >= units) return;   // groups never share a barrier
+  const int slice = unit % slices;
+  const int tile = unit / slices;
+  const af2tile::TileArgs a = unit_args(
+      q, k, v, bias, q_mask, k_mask, out, tile / q_tiles,
+      (tile % q_tiles) * 16 * WG, nq, nk, d, heads, bias_repeat, BK);
+  af2tile::attend_sliced<WG, BK, true>(
+      a, d, slice * af2tile::kSlice,
+      smem + group * af2tile::sliced_smem_bytes<WG, BK>(), group, warp % WG,
+      threadIdx.x % 32);
+}
+
+template <int WG, int G, int BK>
+int launch_sliced_mma(const void* q, const void* k, const void* v,
+                      const float* bias, const uint8_t* q_mask,
+                      const uint8_t* k_mask, void* out, int b, int nq,
+                      int nk, int d, int heads, int bias_repeat,
+                      cudaStream_t stream) {
+  constexpr int bytes = G * af2tile::sliced_smem_bytes<WG, BK>();
+  auto kernel = fused_attention_sliced_mma_kernel<WG, G, BK>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int q_tiles = (nq + 16 * WG - 1) / (16 * WG);
+  const int slices = d / af2tile::kSlice;
+  const long long units = (long long)b * q_tiles * slices;
+  if (units > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)((units + G - 1) / G), WG * G * 32, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), bias, q_mask, k_mask,
+      static_cast<__nv_bfloat16*>(out), (int)units, nq, nk, heads,
+      bias_repeat, q_tiles, d, slices);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 sliced layouts, as dispatch_mma's at D = 128: 1 is four warps on
+// 64 queries over key tiles of 32, 2 one warp per batch*head row over key
+// tiles of 16; 0 takes 2 for Nq <= 16, else 1.
+int dispatch_sliced_mma(int layout, const void* q, const void* k,
+                        const void* v, const float* bias,
+                        const uint8_t* q_mask, const uint8_t* k_mask,
+                        void* out, int b, int nq, int nk, int d, int heads,
+                        int bias_repeat, cudaStream_t stream) {
+  if (layout == 0) layout = nq <= 16 ? 2 : 1;
+  switch (layout) {
+    case 1:
+      return launch_sliced_mma<4, 1, 32>(q, k, v, bias, q_mask, k_mask, out, b,
+                                       nq, nk, d, heads, bias_repeat, stream);
+    case 2:
+      return launch_sliced_mma<1, 4, 16>(q, k, v, bias, q_mask, k_mask, out, b,
+                                       nq, nk, d, heads, bias_repeat, stream);
+    default:
+      return -1;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
 // tile). layout: 0 takes the shape rule; 1 or 2 forces a bf16 layout (see
-// dispatch_mma; for measuring the rule on the card). bias, q_mask and
-// k_mask may be null. Returns cudaGetLastError() after the launch (0 on
-// success), or -1 for a head width, dtype or layout the kernel does not
-// take.
+// dispatch_mma; for measuring the rule on the card). d is 16, 32, 64, 128
+// or a multiple of 128 (the sliced path). bias, q_mask and k_mask may be
+// null. Returns cudaGetLastError() after the launch (0 on success), or -1
+// for a head width, dtype or layout the kernel does not take.
 extern "C" int af2_fused_attention(const void* q, const void* k,
                                    const void* v, const float* bias,
                                    const uint8_t* q_mask,
@@ -365,6 +508,17 @@ extern "C" int af2_fused_attention(const void* q, const void* k,
                                    int bias_repeat, int dtype, int layout,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > af2tile::kSlice) {
+    if (d % af2tile::kSlice != 0) return -1;
+    if (dtype == 0)
+      return layout != 0 ? -1
+                         : launch_sliced_f32(q, k, v, bias, q_mask, k_mask,
+                                           out, b, nq, nk, d, heads,
+                                           bias_repeat, s);
+    if (dtype != 1) return -1;
+    return dispatch_sliced_mma(layout, q, k, v, bias, q_mask, k_mask, out, b,
+                             nq, nk, d, heads, bias_repeat, s);
+  }
   if (dtype == 0)
     return layout != 0 ? -1
                        : launch_f32(q, k, v, bias, q_mask, k_mask, out, b,

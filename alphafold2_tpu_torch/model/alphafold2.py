@@ -134,6 +134,7 @@ class Alphafold2(nn.Module):
             not_ported("structure_module_refinement_iters",
                        structure_module_refinement_iters, _ITEM11)
         self.dim = dim
+        self.heads = heads
         self.max_rel_dist = max_rel_dist
         self.predict_coords = predict_coords
         self.predict_angles = predict_angles

@@ -24,8 +24,10 @@ the card there is no fallback: a tensor the kernel does not take raises.
 Head widths on the card (`kernel_head_dim`): D in {16, 32, 64, 128}
 launches as it is; any other D up to 128 is zero-padded along D to the
 next of those widths, launched, and sliced back (exact: zero columns add
-nothing to q . k^T, and q arrives pre-scaled); D > 128 raises ValueError
-naming the width (the tile has no wider instance yet).
+nothing to q . k^T, and q arrives pre-scaled). D > 128 is zero-padded to
+a multiple of `SLICE` (128) and takes the kernels' sliced path: the
+output columns are split into slices, one thread block each, and every
+block computes q . k^T over the whole D (`csrc/attention_tile.cuh`).
 
 In bf16 the kernel rounds the softmax weights to bf16 before the product
 with v, as the plain version does (`attn.to(q.dtype)`), but keeps the
@@ -44,7 +46,10 @@ from alphafold2_tpu_torch.ops import build
 # Large-negative fill for masked logits (matches model/primitives.py).
 MASK_VALUE = -1e9
 
+# head widths with an instance of their own; wider heads launch at a
+# multiple of SLICE on the sliced path
 HEAD_DIMS = (16, 32, 64, 128)
+SLICE = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -86,14 +91,23 @@ def attention_reference(q, k, v, bias=None, q_mask=None, k_mask=None,
 
 
 def kernel_head_dim(d: int) -> int:
-    """The instantiated head width a width-`d` attention launches at:
-    the smallest of HEAD_DIMS >= d. Raises ValueError above 128."""
+    """The head width a width-`d` attention launches at: the smallest of
+    HEAD_DIMS >= d, or above 128 the next multiple of SLICE (the sliced
+    path)."""
+    if d < 1:
+        raise ValueError(f"head width {d} < 1")
     for width in HEAD_DIMS:
         if d <= width:
             return width
-    raise ValueError(f"head width {d} > {HEAD_DIMS[-1]}: the attention "
-                     f"kernels have no instance wider than "
-                     f"{HEAD_DIMS[-1]} (ROADMAP.md, queue 3)")
+    return -(-d // SLICE) * SLICE
+
+
+def check_head_dim(d: int):
+    """Raise ValueError unless the kernels take head width `d` as it is
+    (one of HEAD_DIMS, or a multiple of SLICE above them)."""
+    if d not in HEAD_DIMS and (d <= SLICE or d % SLICE):
+        raise ValueError(f"head width {d} is neither in {HEAD_DIMS} nor a "
+                         f"multiple of {SLICE} above it")
 
 
 def pad_head_dim(launch, q, k, v, *args, **kwargs):
@@ -135,8 +149,7 @@ def _check(q, k, v, bias, q_mask, k_mask, heads, bias_repeat):
     if k.shape != (b, nk, d) or v.shape != (b, nk, d):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head width {d} not in {HEAD_DIMS}")
+    check_head_dim(d)
     if nq < 1 or nk < 1 or b < 1:
         raise ValueError("empty attention")
     if heads < 1 or b % heads:
@@ -230,9 +243,9 @@ def fused_attention(q, k, v, bias=None, q_mask=None, k_mask=None, *,
                     heads: int = 1, bias_repeat: int = 1) -> torch.Tensor:
     """Fused bias + mask + softmax + PV attention (differentiable).
 
-    CUDA tensors go through the CUDA kernel (any N >= 1, D <= 128 —
-    padded to the next of {16, 32, 64, 128} — float32 or bfloat16); CPU
-    tensors take the plain version. Any other device raises."""
+    CUDA tensors go through the CUDA kernel (any N >= 1 and any D >= 1 —
+    padded as `kernel_head_dim` says — float32 or bfloat16); CPU tensors
+    take the plain version. Any other device raises."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, bias=bias, q_mask=q_mask,
                                    k_mask=k_mask, heads=heads,

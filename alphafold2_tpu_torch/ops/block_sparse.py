@@ -49,8 +49,10 @@ Which shape takes which route on the card (`block_sparse_attention`):
   masked would average over every key under that bias, so the wrapper
   overwrites such rows with the mean of v over their live keys, as the
   contract gives (`_average_shut_rows`, O(B N D) on the card);
-- D outside {16, 32, 64, 128} and <= 128: zero-padded along D on either
-  kernel (`ops.attention.pad_head_dim`); D > 128 raises.
+- D outside {16, 32, 64, 128}: zero-padded along D on either kernel
+  (`ops.attention.pad_head_dim`), up to the next of those widths or,
+  above 128, to a multiple of 128 on the kernels' sliced path (the
+  output columns split across thread blocks).
 
 There is no plain fallback on the card.
 """
@@ -69,8 +71,9 @@ import torch
 
 from alphafold2_tpu_torch import constants
 from alphafold2_tpu_torch.ops import build
-from alphafold2_tpu_torch.ops.attention import (_DTYPE_CODES, HEAD_DIMS,
-                                                MASK_VALUE, LaunchCounter,
+from alphafold2_tpu_torch.ops.attention import (_DTYPE_CODES, MASK_VALUE,
+                                                LaunchCounter,
+                                                check_head_dim,
                                                 fused_attention,
                                                 pad_head_dim)
 
@@ -421,8 +424,7 @@ def _check(q, k, v, plan, bias, bias_repeat, k_mask, heads):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} must all be one (B, N, D)")
     b, n, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head width {d} not in {HEAD_DIMS}")
+    check_head_dim(d)
     if plan.kernel_block not in BLOCKS:
         raise ValueError(f"kernel block {plan.kernel_block} not in "
                          f"{BLOCKS}")
@@ -466,7 +468,7 @@ def block_sparse_attention(q, k, v, plan, *, bias=None,
     """Attention over the live blocks of `plan` (a `BlockPlan` on q's
     device, or a raw (nqb, nqb) pattern with `block=`). CUDA tensors go
     through kernel K2, or K1 for a block with no K2 instance (routes in
-    the module doc), float32 or bfloat16, D <= 128; CPU tensors take the
+    the module doc), float32 or bfloat16, any D; CPU tensors take the
     plain version. Any other device raises, and so does a tensor the
     kernels do not take."""
     if q.device.type == "cpu":

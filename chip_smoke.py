@@ -28,8 +28,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
    widths and blocks without a kernel instance: K1 at D = 8, 48 and 96
    (zero-padded to the next instance), K2 at block 48 (re-planned at
    16) and block 24 (K1 with the pattern as a bias), each launch counted
-   on the kernel that ran; and a padded D=48 launch timed beside D=64 at
-   the triangle shape;
+   on the kernel that ran; a padded D=48 launch timed beside D=64 at
+   the triangle shape; and the sliced path of heads wider than 128: K1
+   at D = 160, 256 and 384 at the triangle shape (B=2048, N=256, bias
+   replayed) and a ragged N=131 one, K2 at D = 256 at the 512 bucket's
+   triangle shape under the default pattern, in fp32 and bf16, each
+   launch counted, and the D = 256 launches timed beside their plain
+   versions, SDPA and the bound;
 4. time: each kernel (CUDA events over a run of launches, and device
    time per launch from torch.profiler), its plain version and one
    PyTorch library call computing the same function (a yardstick the
@@ -78,6 +83,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
    of 200 residues in the 256 bucket (0 K2 + 96 K1), and a step-mode
    fold whose steps run under a spec re-planned from the first pass's
    distogram; then a profile of one 512-bucket fold;
+9a. scheduler: the same model behind the port's `serve.Scheduler`
+   (default buckets and kernel policy, max_batch_size 2, 5 MSA rows, 3
+   recycles, a memory FoldCache, a JSONL Tracer, RetryPolicy(
+   xla_classify=True)): four threads submit 512, 437, 300, 256, 200 and
+   131 residues, a duplicate of 200 behind its leader (coalesced) and
+   after it (cache hit); a real CUDA OOM is caught and classified
+   transient and one more request is served; every ticket ok with
+   finite coords of its length, K2 72 + K1 24 launches per 512 batch
+   and K1 96 per 256 batch; each ticket's latency (submit to resolve:
+   the burst's completion times, with their p50/p99, which over one
+   burst of nine order the batches rather than sample a load), batches
+   and fold wall per bucket, the serve_stats() summary. Then a small fp32
+   model served through the Scheduler on the card against
+   `predict.fold` on the CPU (1e-3), step mode with early exit and
+   streaming (serve_recycles_skipped_total), and injected faults: a
+   transient error (retried, ok), a poison input ("poisoned" while its
+   batch-mate is ok) and a host-side latency that fires the watchdog
+   (executor rebuilt, ok);
 10. train-check: K1's autograd (the kernel forward, the backward's plain
    recompute) against the plain version's autograd at the train step's
    triangle, MSA row and MSA column shapes, fp32 and bf16 (gradients
@@ -193,8 +216,8 @@ def ptxas_summary(report):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             targs = re.search(r"\d((?:fused_attention|block_sparse)"
-                              r"(?:_mma(?:_wide)?)?_kernel)I(\w*?)"
-                              r"((?:Li\d+E)+)",
+                              r"(?:_sliced)?(?:_mma(?:_wide)?)?_kernel)"
+                              r"I(\w*?)((?:Li\d+E)+)",
                               m.group(1))
             entry = "{} {}<{}>".format(
                 targs.group(1), "bf16" if "_mma_" in targs.group(1)
@@ -212,15 +235,16 @@ def ptxas_summary(report):
     return lines
 
 
-def attention_inputs(shape, dtype, device, seed):
-    """Inputs of one fold-path attention launch (heads 8, D 64), with a
+def attention_inputs(shape, dtype, device, seed, d=64):
+    """Inputs of one fold-path attention launch (heads 8, D 64 unless
+    `d` says otherwise), with a
     padded tail of masked residues (so some query rows are fully masked):
     the 256 bucket's three shapes; `msa_col_512`, the one K1 launch of a
     512-bucket fold (its other attentions run K2); and the full-feature
     fold's four (t=4 templates, the last missing and the one before it
     partial, as `synthetic_features` makes them; e=1024 extra rows, each
     covering a random prefix of the real residues)."""
-    heads, d, valid = 8, 64, 200
+    heads, valid = 8, 200
     g = torch.Generator(device=device).manual_seed(seed)
     bucket = BUCKET
     if shape == "msa_col_512":  # the 512 bucket's column attention
@@ -371,6 +395,10 @@ K2_EDGES = [(16, 16, 1.0), (32, 128, 0.37), (64, 32, 1.0),
 # on the card: K1 at these head widths (zero-padded to 16, 64, 128);
 # K2 at block 48 (re-planned at 16) and block 24 (K1, pattern as bias)
 K1_PADDED_WIDTHS = (8, 48, 96)
+# the sliced path (D > 128, zero-padded to a multiple of 128): K1 at these
+# head widths, K2 at SLICED_K2_WIDTH; the D = 256 launches are also timed
+SLICED_WIDTHS = (160, 256, 384)
+SLICED_K2_WIDTH = 256
 # the padding token ('_', the last of the 21), which a PDB leaves out
 NUM_TOKENS_PAD = 20
 ROUTED_BLOCKS = ((48, "block_sparse_attention (K2, re-planned at 16)"),
@@ -456,7 +484,9 @@ def phase_check_edges():
             key = ("block_sparse", dtype)
             worst[key] = max(worst.get(key, 0.0), err)
         check_routes(dtype, worst)
+        check_sliced_widths(dtype, worst)
     worst["padded_width_ms"] = time_padded_width()
+    worst["sliced"] = time_sliced_widths()
     return worst
 
 
@@ -534,6 +564,138 @@ def check_routes(dtype, worst):
                                  f"{err}, launches {launches}")
         key = ("block_sparse", dtype)
         worst[key] = max(worst.get(key, 0.0), err)
+
+
+def ragged_triangle(n, d, dtype, device, seed):
+    """K1's inputs for triangle attention over an n x n pair map (heads
+    8, the last quarter of the residues padding, the bias replayed over
+    the n rows): B = 8 n."""
+    heads, valid = 8, (3 * n) // 4
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k = (torch.randn(n * heads, n, d, generator=g, device=device) * 0.5
+            for _ in range(2))
+    v = torch.randn(n * heads, n, d, generator=g, device=device)
+    real = torch.arange(n, device=device) < valid
+    mask = (real[:, None] & real[None, :]).contiguous()
+    return dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype),
+                bias=torch.randn(heads, n, n, generator=g, device=device),
+                q_mask=mask, k_mask=mask, heads=heads, bias_repeat=n)
+
+
+def check_sliced_widths(dtype, worst):
+    """The sliced path (D > 128): K1 at SLICED_WIDTHS at the 256
+    bucket's triangle shape and a ragged N = 131 one, K2 at D = 256 at
+    the 512 bucket's triangle shape under the default policy's pattern,
+    through the public wrappers, against the plain versions in fp32 on
+    the same values; each call must add one launch to its kernel's
+    counter. The worst errors land under ("sliced", kernel, dtype)."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    dev = torch.device("cuda")
+    tol = TOLERANCE[dtype]
+    for d, n in itertools.product(SLICED_WIDTHS, (BUCKET, 131)):
+        kw = (attention_inputs("triangle", dtype, dev, seed=d, d=d)
+              if n == BUCKET else ragged_triangle(n, d, dtype, dev, seed=d))
+        before = attn.launch_count.value
+        out = attn.fused_attention(**kw)
+        torch.cuda.synchronize()
+        launches = attn.launch_count.value - before
+        ref = plain_attention(dict(kw, **{
+            key: kw[key].float() for key in ("q", "k", "v")}))
+        err = float((out.float() - ref).abs().max())
+        log(f"check fused_attention sliced D={d} -> "
+            f"{attn.kernel_head_dim(d)} triangle B={kw['q'].shape[0]} N={n} "
+            f"{str(dtype)[6:]}: max abs err {err:.3e} (tolerance "
+            f"{tol:.0e}), K1 launches {launches}")
+        if not err <= tol or launches != 1 or out.shape != kw["q"].shape \
+                or not torch.isfinite(out).all():
+            raise AssertionError(f"fused_attention sliced D={d} N={n} "
+                                 f"{dtype}: err {err}, launches {launches}")
+        key = ("sliced", "fused_attention", dtype)
+        worst[key] = max(worst.get(key, 0.0), err)
+        del kw, out, ref
+    spec = sparse_specs()["default"]
+    kw = block_sparse_inputs("triangle", spec, dtype, dev, seed=7,
+                             d=SLICED_K2_WIDTH)
+    before = bs.launch_count.value
+    out = bs.block_sparse_attention(**kw)
+    torch.cuda.synchronize()
+    launches = bs.launch_count.value - before
+    ref = bs.block_sparse_reference(**dict(kw, **{
+        key: kw[key].float() for key in ("q", "k", "v")}))
+    err = float((out.float() - ref).abs().max())
+    log(f"check block_sparse sliced D={SLICED_K2_WIDTH} triangle "
+        f"({spec.label}) B={kw['q'].shape[0]} N={SPARSE_BUCKET} "
+        f"{str(dtype)[6:]}: max abs err {err:.3e} (tolerance {tol:.0e}), "
+        f"K2 launches {launches}")
+    if not err <= tol or launches != 1 or not torch.isfinite(out).all():
+        raise AssertionError(f"block_sparse sliced D={SLICED_K2_WIDTH} "
+                             f"{dtype}: err {err}, launches {launches}")
+    worst[("sliced", "block_sparse", dtype)] = err
+
+
+def attention_bound(kw):
+    """(bound ms, 'bytes' | 'operations', bytes, flops) of one K1 call:
+    q, k, v read and out written once, the bias and masks read once;
+    the two products."""
+    q, k, bias = kw["q"], kw["k"], kw["bias"]
+    b, nq, d = q.shape
+    nk = k.shape[1]
+    nbytes = (2 * b * (nq + nk) * d * q.element_size()
+              + (0 if bias is None else bias.numel() * 4)
+              + kw["q_mask"].numel() + kw["k_mask"].numel())
+    flops = 4 * b * nq * nk * d
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_FLOPS[q.dtype] * 1e3
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations", nbytes, flops)
+
+
+def time_sliced_widths():
+    """bf16 at D = 256: K1 at the triangle shape and K2 at the 512
+    bucket's triangle shape under the default pattern, each kernel
+    (CUDA events), its plain version, one SDPA call on the equivalent
+    additive mask (a yardstick the port never calls) and the bound."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    dtype, dev = torch.bfloat16, torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    kw = attention_inputs("triangle", dtype, dev, SEED, d=SLICED_K2_WIDTH)
+    spec = sparse_specs()["default"]
+    skw = block_sparse_inputs("triangle", spec, dtype, dev, SEED,
+                              d=SLICED_K2_WIDTH)
+    for name, args, run, plain, mask, bound in (
+            ("fused_attention", kw, lambda: attn.fused_attention(**kw),
+             lambda: plain_attention(kw), lambda: sdpa_mask(kw, dtype),
+             attention_bound(kw)),
+            ("block_sparse", skw,
+             lambda: bs.block_sparse_attention(**skw),
+             lambda: bs.block_sparse_reference(**skw),
+             lambda: sparse_sdpa_mask(skw, spec, dtype),
+             block_sparse_bound(skw, spec))):
+        ms = cuda_ms(run, 10)
+        plain_ms = cuda_ms(plain, 3, warmup=1)
+        add_mask = mask()
+        try:
+            library_ms = cuda_ms(lambda: sdpa(args["q"], args["k"],
+                                              args["v"], attn_mask=add_mask,
+                                              scale=1.0), 3, warmup=1)
+        except RuntimeError as e:   # the library has no kernel for it
+            log(f"  sdpa refused {name} D={SLICED_K2_WIDTH}: "
+                f"{str(e).splitlines()[0][:200]}")
+            library_ms = None
+        del add_mask
+        b, n, d = args["q"].shape
+        lib = "refused" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"time {name} sliced D={d} triangle bf16 B={b} N={n}: kernel "
+            f"{ms:.4f} ms (events), plain {plain_ms:.4f} ms, sdpa {lib}, "
+            f"bound {bound[0]:.4f} ms ({bound[1]}: {bound[2] / 1e6:.1f} MB, "
+            f"{bound[3] / 1e9:.3f} GFLOP), {100 * bound[0] / ms:.1f} % of "
+            f"bound")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound[0], bound_by=bound[1])
+    return out
 
 
 def time_padded_width():
@@ -705,11 +867,11 @@ def sparse_specs():
             "banded128": KernelSpec.banded(SPARSE_BUCKET, 128)}
 
 
-def block_sparse_inputs(shape, spec, dtype, device, seed):
-    """Inputs of one 512-bucket K2 launch: key masks with a padded tail
-    and key rows masked in full (a padded alignment row; the padded rows
-    of the pair map)."""
-    heads, d, valid, n = 8, 64, 437, SPARSE_BUCKET
+def block_sparse_inputs(shape, spec, dtype, device, seed, d=64):
+    """Inputs of one 512-bucket K2 launch (heads 8, D 64 unless `d` says
+    otherwise): key masks with a padded tail and key rows masked in full
+    (a padded alignment row; the padded rows of the pair map)."""
+    heads, valid, n = 8, 437, SPARSE_BUCKET
     g = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*s, scale=1.0):
@@ -786,6 +948,21 @@ def block_sparse_bound(kw, spec):
             "bytes" if bytes_ms >= flops_ms else "operations", nbytes, flops)
 
 
+def sparse_sdpa_mask(kw, spec, dtype):
+    """The additive mask (B, N, N) in `dtype` that makes one SDPA call
+    compute what one K2 launch does: the bias replayed over the fold,
+    -1e9 at masked keys, -inf in dead blocks."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    q, bias, heads = kw["q"], kw["bias"], kw["heads"]
+    b, n = q.shape[:2]
+    live = torch.as_tensor(spec.token_mask(), device=q.device)
+    add_mask = bias.reshape(-1, heads, n, n).repeat_interleave(
+        kw["bias_repeat"], dim=0).reshape(b, n, n)
+    keep = kw["k_mask"].repeat_interleave(heads, dim=0)[:, None, :]
+    add_mask = add_mask.masked_fill(~keep, attn.MASK_VALUE)
+    return add_mask.masked_fill(~live, float("-inf")).to(dtype)
+
+
 def phase_time_block_sparse():
     """K2 at the 512 bucket's shapes in bf16 under the default policy's
     pattern (live 0.2891) and the banded block-128 one (live 0.875):
@@ -829,16 +1006,11 @@ def phase_time_block_sparse():
                 plain_ms = cuda_ms(lambda: bs.block_sparse_reference(**kw),
                                    iters=max(iters // 2, 3))
                 # yardstick only: one library call on the equivalent mask
-                add_mask = bias.reshape(-1, heads, n, n).repeat_interleave(
-                    rep, dim=0).reshape(b, n, n)
-                keep = k_mask.repeat_interleave(heads, dim=0)[:, None, :]
-                add_mask = add_mask.masked_fill(~keep, attn.MASK_VALUE)
-                add_mask = add_mask.masked_fill(~live, float("-inf")
-                                                ).to(dtype)
+                add_mask = sparse_sdpa_mask(kw, spec, dtype)
                 library_ms = cuda_ms(
                     lambda: sdpa(q, k, v, attn_mask=add_mask, scale=1.0),
                     iters=max(iters // 2, 3))
-                del add_mask, keep
+                del add_mask
                 entry.update(plain_ms=plain_ms, library_ms=library_ms)
                 extra = (f", plain {plain_ms:.4f} ms, sdpa "
                          f"{library_ms:.4f} ms")
@@ -1410,6 +1582,311 @@ def phase_executor(model, cfg):
     return k2_total, k1_total, ex, sparse_batch, spec
 
 
+# the scheduler phase's threaded traffic: one request of each length over
+# the 512 and 256 buckets, from four client threads
+SCHED_LENGTHS = (512, 437, 300, 256, 200, 131)
+SCHED_DUPLICATE = 200
+SCHED_CLIENTS = 4
+
+
+def small_models(seed=SEED):
+    """The parity phases' small fp32 model on the CPU and on the card,
+    from the same perturbed weights."""
+    from alphafold2_tpu_torch import Alphafold2
+    kw = dict(dim=32, depth=2, heads=2, dim_head=16, predict_coords=True,
+              generator=torch.Generator().manual_seed(seed))
+    cpu_model = Alphafold2(**kw, device="cpu")
+    perturb(cpu_model, seed + 1)
+    gpu_model = Alphafold2(**kw, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    return cpu_model, gpu_model
+
+
+def serve_requests(lengths, seed, rows=MSA_ROWS):
+    from alphafold2_tpu_torch.data.synthetic import synthetic_requests
+    return synthetic_requests(np.random.default_rng(seed), num=len(lengths),
+                              lengths=lengths, msa_depth=rows)
+
+
+def resolved_ok(resp, req, source=None):
+    """A response that ended ok with finite coords of its request's
+    length (and, when given, from `source`)."""
+    return (resp.status == "ok" and resp.coords is not None
+            and resp.coords.shape == (req.length, 3)
+            and bool(np.isfinite(resp.coords).all())
+            and (source is None or resp.source == source))
+
+
+def phase_scheduler(model, cfg):
+    """The serving front door on the card: the default ModelConfig behind
+    FoldExecutor and the port's Scheduler (default buckets, the default
+    KernelPolicy, max_batch_size 2, 5 MSA rows, 3 recycles, a memory
+    FoldCache, a JSONL Tracer, RetryPolicy(xla_classify=True)), warmed
+    up over every bucket. Four client threads submit one request of each SCHED_LENGTHS, a duplicate
+    of 200 residues right behind its leader (coalesced) and again once it
+    resolved (a cache hit); then a real CUDA OOM (an allocation larger
+    than the card) is caught and classified transient, and the Scheduler
+    serves one more request. Every 512
+    batch must launch K2 72 and K1 24 times, every 256 batch K1 96 times.
+    Then a small fp32 model served through the Scheduler against
+    `predict.fold` on the CPU, step mode with early exit and streaming,
+    and the injected faults (a transient error, a poison input, a
+    watchdog fire). Returns the numbers it printed."""
+    import tempfile
+    import threading
+
+    from alphafold2_tpu_torch import serve
+    from alphafold2_tpu_torch.ops import attention as attn
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    edges = serve.default_policy().edges
+    passes = NUM_RECYCLES + 1
+    per_fold = {SPARSE_BUCKET: (3 * cfg.depth * passes, cfg.depth * passes),
+                BUCKET: (0, 4 * cfg.depth * passes)}
+    reqs = serve_requests(SCHED_LENGTHS, SEED + 7)
+    leader = reqs[SCHED_LENGTHS.index(SCHED_DUPLICATE)]
+
+    def twin(r):
+        return serve.FoldRequest(seq=r.seq.copy(), msa=r.msa.copy())
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        registry = serve.MetricsRegistry()
+        metrics = serve.ServeMetrics(os.path.join(tmp, "batches.jsonl"),
+                                     registry=registry)
+        tracer = serve.Tracer(jsonl_path=os.path.join(tmp, "traces.jsonl"))
+        sched = serve.Scheduler(
+            serve.FoldExecutor(model), serve.BucketPolicy(edges),
+            serve.SchedulerConfig(max_batch_size=2, msa_depth=MSA_ROWS,
+                                  num_recycles=NUM_RECYCLES),
+            metrics, cache=serve.FoldCache(registry=registry),
+            model_tag=f"chip_smoke-seed{SEED}", tracer=tracer,
+            registry=registry, retry=serve.RetryPolicy(xla_classify=True),
+            kernel_policy=serve.KernelPolicy.from_model_config(cfg, edges))
+        tickets, lock = [], threading.Lock()
+
+        def client(i):
+            for r in reqs[i::SCHED_CLIENTS]:
+                pair = [(r, sched.submit(r), "fold")]
+                if r is leader:
+                    pair.append((r, sched.submit(twin(r)), "coalesced"))
+                with lock:
+                    tickets.extend(pair)
+
+        with sched:
+            # every bucket's program once, on a zero batch, as a server
+            # does before it takes traffic
+            t0 = time.perf_counter()
+            fresh = sched.warmup()
+            warm_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            attn.launch_count.reset()
+            bs.launch_count.reset()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(SCHED_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            resps = [(r, t.result(timeout=600), src)
+                     for r, t, src in tickets]
+            resps.append((leader, sched.submit(twin(leader)).result(
+                timeout=600), "cache"))
+            traffic_s = time.perf_counter() - t0
+            # more than the card holds (the caching allocator could
+            # serve an allocation past mem_get_info's free bytes from
+            # memory it already reserved)
+            total = torch.cuda.get_device_properties(0).total_memory
+            try:
+                torch.empty(total + (1 << 30), dtype=torch.uint8,
+                            device="cuda")
+                raise AssertionError("an allocation past the card's "
+                                     "memory succeeded")
+            except torch.cuda.OutOfMemoryError as exc:
+                verdict = serve.classify(repr(exc))
+            after = serve_requests((131,), SEED + 8)[0]
+            resps.append((after, sched.submit(after).result(timeout=600),
+                          "fold"))
+        # after the stop: the worker records a batch after its tickets
+        stats = sched.serve_stats()
+        torch.cuda.synchronize()
+        k1, k2 = attn.launch_count.value, bs.launch_count.value
+        tracer.close()
+        metrics.close()
+        with open(os.path.join(tmp, "batches.jsonl")) as fh:
+            batches = [json.loads(line) for line in fh]
+        with open(os.path.join(tmp, "traces.jsonl")) as fh:
+            traces = [json.loads(line) for line in fh]
+    bad = [(r.length, resp.status, resp.source, resp.error)
+           for r, resp, src in resps if not resolved_ok(resp, r, src)]
+    if bad:
+        raise AssertionError(f"scheduler responses not ok: {bad}")
+    if verdict is None or not verdict.transient:
+        raise AssertionError(f"a real CUDA OOM classified {verdict}")
+    walls = {}
+    for rec in batches:
+        walls.setdefault(int(rec["bucket_len"]), []).append(
+            rec["batch_latency_s"] * 1e3)
+    if set(walls) - set(per_fold):
+        raise AssertionError(f"batches in buckets {sorted(walls)}")
+    want = [sum(per_fold[b][i] * len(w) for b, w in walls.items())
+            for i in (0, 1)]
+    lat = [resp.latency_s * 1e3 for _, resp, _ in resps]
+    # (length, how it resolved, ms) of every ticket, in completion order
+    done = sorted(((r.length, src, round(ms, 1))
+                   for (r, _, src), ms in zip(resps, lat)),
+                  key=lambda x: x[2])
+    folded = [tr for tr in traces if tr["source"] == "fold"]
+    per_bucket = {b: [round(x, 1) for x in w]
+                  for b, w in sorted(walls.items())}
+    resilience = {k: v for k, v in stats["resilience"].items()
+                  if not isinstance(v, dict)}
+    log(f"scheduler warm-up: {fresh} programs built in {warm_s:.2f} s")
+    log(f"scheduler traffic {list(SCHED_LENGTHS)} + duplicate of "
+        f"{SCHED_DUPLICATE} (coalesced, then cache) from {SCHED_CLIENTS} "
+        f"threads, then one more after a real CUDA OOM (classified "
+        f"{verdict.reason}, transient): {len(resps)} tickets ok in "
+        f"{traffic_s:.2f} s; latency (ms) of each {done}, p50 "
+        f"{np.percentile(lat, 50):.1f}, p99 {np.percentile(lat, 99):.1f} "
+        f"over these {len(lat)}; batches "
+        f"{ {b: len(w) for b, w in per_bucket.items()} }, fold wall per "
+        f"bucket (ms) {per_bucket}; "
+        f"K2 launches {k2} (expected {want[0]}), K1 launches {k1} "
+        f"(expected {want[1]}); {len(traces)} traces, "
+        f"{len(folded)} folded")
+    log(f"scheduler serve_stats: served {stats['served']}, batches "
+        f"{stats['batches']}, cache hits {stats['cache']['hits']} / "
+        f"misses {stats['cache']['misses']} / coalesced "
+        f"{stats['cache']['coalesced']}, resilience {resilience}, padding "
+        f"waste {stats['padding_waste']:.3f}")
+    if [k2, k1] != want:
+        raise AssertionError(f"scheduler traffic launched K2 {k2} and K1 "
+                             f"{k1} times, expected {want}")
+    out.update(latency_ms=[list(x) for x in done],
+               latency_p50_ms=float(np.percentile(lat, 50)),
+               latency_p99_ms=float(np.percentile(lat, 99)),
+               batches={str(b): len(w) for b, w in walls.items()},
+               fold_wall_ms={str(b): w for b, w in walls.items()},
+               k1_launches=k1, k2_launches=k2, traffic_s=traffic_s,
+               warmup_s=warm_s,
+               oom_verdict=verdict.reason)
+    out["parity_err"] = scheduler_parity()
+    out["recycles_skipped"] = scheduler_step_mode(model)
+    out["faults"] = scheduler_faults()
+    return out
+
+
+def scheduler_parity():
+    """A small fp32 model served through the Scheduler on the card
+    against `predict.fold` on the CPU from the same weights, at real
+    residues (tolerance 1e-3)."""
+    from alphafold2_tpu_torch import fold, serve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_model, gpu_model = small_models()
+    (req,) = serve_requests((24,), SEED + 9, rows=3)
+    policy = serve.BucketPolicy((32,))
+    batch, _ = policy.assemble([req], 32, 1, msa_depth=3, device="cpu")
+    ref = fold(cpu_model, **batch, num_recycles=2, device="cpu")
+    sched = serve.Scheduler(
+        serve.FoldExecutor(gpu_model), policy,
+        serve.SchedulerConfig(max_batch_size=1, msa_depth=3,
+                              num_recycles=2),
+        registry=serve.MetricsRegistry())
+    with sched:
+        resp = sched.submit(req).result(timeout=600)
+    if not resolved_ok(resp, req):
+        raise AssertionError(f"scheduler parity fold: {resp.status} "
+                             f"{resp.error}")
+    err = float(np.abs(resp.coords - ref.coords[0, :24].numpy()).max())
+    log(f"scheduler parity (dim 32, depth 2, n 24 in bucket 32, 2 "
+        f"recycles) card vs cpu: coords max abs err {err:.3e} (tolerance "
+        f"1e-3)")
+    if not err <= 1e-3:
+        raise AssertionError(f"scheduler fold differs from cpu fold: {err}")
+    return err
+
+
+def scheduler_step_mode(model):
+    """The default model in step mode: RecyclePolicy(converge_tol > 0,
+    stream=True) on two 256-bucket requests; progressive results reach
+    the tickets and the early exits are counted in
+    serve_recycles_skipped_total."""
+    from alphafold2_tpu_torch import serve
+    registry = serve.MetricsRegistry()
+    sched = serve.Scheduler(
+        serve.FoldExecutor(model), serve.BucketPolicy((BUCKET,)),
+        serve.SchedulerConfig(max_batch_size=2, msa_depth=MSA_ROWS,
+                              num_recycles=NUM_RECYCLES),
+        registry=registry,
+        recycle_policy=serve.RecyclePolicy(converge_tol=1e3, stream=True))
+    reqs = serve_requests((200, 131), SEED + 10)
+    with sched:
+        tickets = [sched.submit(r) for r in reqs]
+        resps = [t.result(timeout=600) for t in tickets]
+    skipped = registry.counter("serve_recycles_skipped_total").value()
+    progress = [len(t.progress()) for t in tickets]
+    log(f"scheduler step mode (converge_tol 1e3, stream): recycles run "
+        f"{[r.recycles for r in resps]} of {NUM_RECYCLES}, progressive "
+        f"results {progress}, serve_recycles_skipped_total {skipped:g}")
+    if not all(resolved_ok(r, q) for r, q in zip(resps, reqs)) or \
+            min(progress) < 1 or not skipped > 0:
+        raise AssertionError("step mode: no early exit or no progress")
+    return skipped
+
+
+def scheduler_faults():
+    """Injected faults on the small model's Scheduler on the card: one
+    transient executor error (retried, ends ok), one poison input (ends
+    "poisoned" after bisection while its batch-mate ends ok) and a
+    host-side latency that fires the watchdog (the executor is rebuilt
+    and the batch ends ok). The seeds make each plan fire on its first
+    draw only."""
+    from alphafold2_tpu_torch import serve
+    _, gpu_model = small_models()
+    results = {}
+    cases = (
+        ("transient", dict(seed=10, exec_error_rate=0.5), {}, None),
+        ("poison", dict(seed=0), {}, "poison"),
+        ("watchdog", dict(seed=19, exec_latency_rate=0.5,
+                          exec_latency_s=3.0), dict(watchdog_s=1.0), None))
+    for name, plan_kw, retry_kw, poison in cases:
+        registry = serve.MetricsRegistry()
+        plan = serve.FaultPlan(registry=registry, **plan_kw)
+        reqs = serve_requests((24, 20), SEED + 11, rows=3)
+        if poison:
+            plan.add_poison(reqs[0].seq)
+        sched = serve.Scheduler(
+            serve.FoldExecutor(gpu_model, faults=plan.arm()),
+            serve.BucketPolicy((32,)),
+            serve.SchedulerConfig(max_batch_size=2, max_wait_ms=200.0,
+                                  msa_depth=3, num_recycles=1),
+            registry=registry,
+            retry=serve.RetryPolicy(max_attempts=3, backoff_base_s=0.01,
+                                    **retry_kw))
+        with sched:
+            resps = [t.result(timeout=600)
+                     for t in [sched.submit(r) for r in reqs]]
+            res = sched.serve_stats()["resilience"]
+        statuses = [r.status for r in resps]
+        want = ["poisoned", "ok"] if poison else ["ok", "ok"]
+        counts = {k: res[k] for k in ("retries", "bisections",
+                                      "watchdog_fires", "executor_rebuilds")}
+        injected = {k: v for k, v in plan.snapshot()["injected"].items()
+                    if v}
+        log(f"scheduler fault {name}: statuses {statuses}, attempts "
+            f"{[r.attempts for r in resps]}, injected {injected}, {counts}")
+        if statuses != want or (name == "watchdog" and
+                                counts["watchdog_fires"] != 1):
+            raise AssertionError(f"fault {name}: {statuses}, {counts}")
+        results[name] = dict(statuses=statuses, **counts)
+        if name == "watchdog":
+            # the abandoned attempt sleeps out its latency, then runs
+            time.sleep(plan.exec_latency_s)
+            torch.cuda.synchronize()
+    return results
+
+
 # the contract configuration's K1 shapes: b=1, 256 residues, 5 MSA rows,
 # heads 8, dim_head 64 (the 256 bucket's fold shapes)
 TRAIN_K1_SHAPES = ("triangle", "msa_row", "msa_col")
@@ -1616,6 +2093,17 @@ def phase_train_recycled():
     return {"r": r, "k1_launches": h["k1_launches"], "loss": h["loss"]}
 
 
+def sliced_record(edges, kernel):
+    """One kernel's sliced-path entries of the JSON record: its worst
+    errors at D > 128 and its D = 256 times."""
+    timed = edges["sliced"][kernel]
+    return {"max_err_sliced_f32": edges[("sliced", kernel, torch.float32)],
+            "max_err_sliced_bf16": edges[("sliced", kernel,
+                                          torch.bfloat16)],
+            **{f"d{SLICED_K2_WIDTH}_{key}": val
+               for key, val in timed.items()}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=None,
@@ -1655,9 +2143,11 @@ def main(argv=None):
     bs_worst = run("check-block-sparse", phase_check_block_sparse)
     edges = run("check-edges", phase_check_edges)
     for dtype in (torch.float32, torch.bfloat16):
-        worst[dtype] = max(worst[dtype], edges[("fused_attention", dtype)])
+        worst[dtype] = max(worst[dtype], edges[("fused_attention", dtype)],
+                           edges[("sliced", "fused_attention", dtype)])
         bs_worst[dtype] = max(bs_worst[dtype],
-                              edges[("block_sparse", dtype)])
+                              edges[("block_sparse", dtype)],
+                              edges[("sliced", "block_sparse", dtype)])
     timing = run("time", phase_time)
     bs_timing = run("time-block-sparse", phase_time_block_sparse)
     run("parity", phase_parity)
@@ -1689,7 +2179,9 @@ def main(argv=None):
         lambda: ex.run(batch, NUM_RECYCLES, kernel=spec),
         f"executor fold {SPARSE_LENGTHS[-1]} residues, bucket "
         f"{SPARSE_BUCKET} ({spec.label})")
-    del ex, model
+    del ex
+    sched = run("scheduler", phase_scheduler, model, cfg)
+    del model
     grad_worst = run("train-check", phase_train_check)
     train = run("train", phase_train)
     recycled = run("train-recycled", phase_train_recycled)
@@ -1724,6 +2216,9 @@ def main(argv=None):
         "max_abs_err": worst[torch.bfloat16],
         "max_err_f32": worst[torch.float32],
         "max_err_bf16": worst[torch.bfloat16],
+        **sliced_record(edges, "fused_attention"),
+        "launches_scheduler": sched["k1_launches"],
+        "scheduler": sched,
         **timing,
     }, {
         "name": "block_sparse_attention",
@@ -1736,6 +2231,8 @@ def main(argv=None):
         "max_abs_err": bs_worst[torch.bfloat16],
         "max_err_f32": bs_worst[torch.float32],
         "max_err_bf16": bs_worst[torch.bfloat16],
+        **sliced_record(edges, "block_sparse"),
+        "launches_scheduler": sched["k2_launches"],
         **bs_timing,
     }]}
     print(json.dumps(record), flush=True)

@@ -345,15 +345,16 @@ def test_block_sparse_kernel_edge_cases(cuda_device, dtype):
 @pytest.mark.gpu
 def test_block_sparse_kernel_refuses_misfits(cuda_device):
     """On the card there is no fallback: a shape or type the kernels do
-    not take raises before any launch (a head width below 128 is padded
-    to an instance, so the misfit width is one above 128)."""
+    not take raises before any launch (the wrapper pads every head width
+    to one the kernel takes, so the misfit width goes straight to the
+    launch: 144, neither an instance nor a multiple of 128)."""
     from alphafold2_tpu_torch.ops import block_sparse as pt_bs
     q, k, v, plan, kw = block_sparse_case("small", torch.float32,
                                           cuda_device)
     before = pt_bs.launch_count.value
     with pytest.raises(ValueError, match="head width 144"):
-        pt_bs.block_sparse_attention(q.repeat(1, 1, 9), k.repeat(1, 1, 9),
-                                     v.repeat(1, 1, 9), plan, **kw)
+        pt_bs._launch(q.repeat(1, 1, 9), k.repeat(1, 1, 9),
+                      v.repeat(1, 1, 9), plan, **kw)
     with pytest.raises(TypeError):
         pt_bs.block_sparse_attention(q.half(), k.half(), v.half(), plan,
                                      **kw)
@@ -566,9 +567,77 @@ def test_cuda_kernels_at_routed_widths_and_blocks(cuda_device, dtype):
                                            **kw)
         assert float((out.float() - ref).abs().max()) <= atol, (block,
                                                                 band_only)
-    with pytest.raises(ValueError, match="head width 256"):
-        x = torch.zeros(2, 8, 256, device=cuda_device, dtype=dt)
-        pt_attn.fused_attention(x, x, x)
+
+
+# K1 at the sliced path's widths (D > 128): the triangle shape of the
+# 256 bucket (B = 256 rows x 8 heads, N = 256, the bias replayed over the
+# rows) and a ragged N = 131 one; K2 at D = 256 at the 512 bucket's
+# triangle shape under the default policy's pattern
+SLICED_WIDTHS = (160, 256, 384)
+
+
+def triangle_case(n, d, rows, dtype, device, seed):
+    """(q, k, v, bias, q_mask, k_mask, heads, bias_repeat): triangle
+    attention over an n x n pair map of `rows` rows, 8 heads, the last
+    quarter of the residues padding."""
+    heads, valid = 8, (3 * n) // 4
+    g = torch.Generator(device=device).manual_seed(seed)
+    b = rows * heads
+    q, k = (torch.randn(b, n, d, generator=g, device=device) * 0.5
+            for _ in range(2))
+    v = torch.randn(b, n, d, generator=g, device=device)
+    bias = torch.randn(heads, n, n, generator=g, device=device)
+    real = torch.arange(n, device=device) < valid
+    mask = (real[:rows, None] & real[None, :]).contiguous()
+    return (q.to(dtype), k.to(dtype), v.to(dtype), bias, mask, mask, heads,
+            rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernels_at_sliced_widths(cuda_device, dtype):
+    """K1 at D = 160, 256, 384 (padded to 256, 256, 384) at the 256
+    bucket's triangle shape and a ragged N = 131 one, and K2 at D = 256
+    at the 512 bucket's triangle shape under the default policy's
+    pattern: each one launch of its own kernel, against its plain version
+    in fp32 on the same values (1e-4 fp32, 2e-2 bf16)."""
+    from alphafold2_tpu_torch import ModelConfig
+    from alphafold2_tpu_torch.ops import block_sparse as pt_bs
+    from alphafold2_tpu_torch.serve.bucketing import default_policy
+    from alphafold2_tpu_torch.serve.kernelpolicy import KernelPolicy
+    dt = getattr(torch, dtype)
+    atol = 1e-4 if dt == torch.float32 else 2e-2
+    for d, (n, rows) in itertools.product(SLICED_WIDTHS,
+                                          ((256, 256), (131, 16))):
+        q, k, v, bias, qm, km, heads, rep = triangle_case(
+            n, d, rows, dt, cuda_device, seed=d + n)
+        before = pt_attn.launch_count.value
+        out = pt_attn.fused_attention(q, k, v, bias, qm, km, heads=heads,
+                                      bias_repeat=rep)
+        torch.cuda.synchronize()
+        assert pt_attn.launch_count.value == before + 1
+        ref = pt_attn.attention_reference(q.float(), k.float(), v.float(),
+                                          bias, qm, km, heads=heads,
+                                          bias_repeat=rep)
+        assert out.shape == ref.shape and torch.isfinite(out).all()
+        err = float((out.float() - ref).abs().max())
+        assert err <= atol, f"D={d} N={n}: {err} > {atol}"
+        del q, k, v, out, ref
+    spec = KernelPolicy.from_model_config(
+        ModelConfig(), default_policy().edges).spec_for(512)
+    q, k, v, bias, _, km, heads, rep = triangle_case(
+        512, 256, 512, dt, cuda_device, seed=7)
+    kw = dict(bias=bias, bias_repeat=rep, k_mask=km, heads=heads, scale=1.0)
+    plan = spec.device_plan(cuda_device)
+    before = pt_bs.launch_count.value
+    with torch.no_grad():
+        out = pt_bs.block_sparse_attention(q, k, v, plan, **kw)
+    torch.cuda.synchronize()
+    assert pt_bs.launch_count.value == before + 1
+    ref = pt_bs.block_sparse_reference(q.float(), k.float(), v.float(),
+                                       plan, **kw)
+    err = float((out.float() - ref).abs().max())
+    assert torch.isfinite(out).all() and err <= atol, err
 
 
 @pytest.mark.gpu
@@ -613,3 +682,45 @@ def test_cuda_fold_and_write_miss_then_hit(cuda_device, tmp_path):
                                    num_recycles=1))
         _, coords, _ = parse_pdb(open(miss).read())
         assert np.abs(coords[:, 1] - entry.coords).max() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_cuda_scheduler_matches_cpu_fold(cuda_device):
+    """The port's Scheduler on the card (threaded submits, one batch of
+    two in the 32 bucket, a cache hit after) against `predict.fold` on
+    the CPU from the same weights: coords within 1e-3 at real residues,
+    K1 launched 4 times a layer and pass for the one batch."""
+    from alphafold2_tpu_torch import Alphafold2, fold, serve
+    from alphafold2_tpu_torch.data.synthetic import synthetic_requests
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(dim=32, depth=2, heads=2, dim_head=16, predict_coords=True,
+              generator=torch.Generator().manual_seed(0))
+    cpu_model = Alphafold2(**kw, device="cpu")
+    gpu_model = Alphafold2(**kw)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    reqs = synthetic_requests(np.random.default_rng(6), num=2,
+                              lengths=(24, 19), msa_depth=3)
+    policy = serve.BucketPolicy((32,))
+    sched = serve.Scheduler(
+        serve.FoldExecutor(gpu_model), policy,
+        serve.SchedulerConfig(max_batch_size=2, max_wait_ms=500.0,
+                              msa_depth=3, num_recycles=1),
+        cache=serve.FoldCache(registry=serve.MetricsRegistry()),
+        model_tag="gpu-test", registry=serve.MetricsRegistry())
+    pt_attn.launch_count.reset()
+    with sched:
+        resps = [t.result(timeout=300)
+                 for t in [sched.submit(r) for r in reqs]]
+        twin = serve.FoldRequest(seq=reqs[0].seq, msa=reqs[0].msa)
+        hit = sched.submit(twin).result(timeout=300)
+    torch.cuda.synchronize()
+    assert pt_attn.launch_count.value == 4 * 2 * 2
+    assert [r.status for r in resps + [hit]] == ["ok"] * 3
+    assert hit.source == "cache"
+    batch, _ = policy.assemble(reqs, 32, 2, msa_depth=3, device="cpu")
+    ref = fold(cpu_model, **batch, num_recycles=1, device="cpu")
+    for i, (r, resp) in enumerate(zip(reqs, resps)):
+        err = float(np.abs(resp.coords - ref.coords[i, :r.length].numpy())
+                    .max())
+        assert err <= 1e-3, err

@@ -33,6 +33,7 @@ from alphafold2_tpu_torch.model import evoformer as pt_evo
 from alphafold2_tpu_torch.model import primitives as pt_prim
 from alphafold2_tpu_torch.model import structure as pt_struct
 from alphafold2_tpu_torch.weights import load_jax_params
+from test_torch_serve import random_params
 
 DIM, HEADS, DIM_HEAD, N, ROWS, DEPTH, VALID = 32, 2, 16, 16, 3, 2, 12
 ATOL = 1e-4
@@ -310,6 +311,33 @@ def test_fold_init_rows_selects_rows(models):
                                rtol=0, atol=0)
 
 
+def test_forward_matches_jax_at_dim_head_160():
+    """A head wider than 128 (the card launches it on the kernels' sliced
+    path; here the plain version): a small model at dim_head 160 gives
+    the JAX model's coords and distogram from the same perturbed
+    weights."""
+    rng = np.random.default_rng(14)
+    n, valid = 12, 10
+    kw = dict(MODEL_KW, depth=1, dim_head=160)
+    mask = padded_mask(1, n, valid)
+    batch = dict(seq=rng.integers(0, 21, (1, n)),
+                 msa=rng.integers(0, 21, (1, ROWS, n)), mask=mask,
+                 msa_mask=np.broadcast_to(mask[:, None], (1, ROWS, n)).copy())
+    jm = jax_af2.Alphafold2(**kw)
+    # numpy draws on the init's shapes: a real init costs ~30 s here
+    shapes = jax.eval_shape(lambda key: jm.init(key, **batch),
+                            jax.random.PRNGKey(15))
+    params = random_params(shapes, np.random.default_rng(16))
+    pm = pt_af2.Alphafold2(**kw, device="cpu")
+    load_jax_params(pm, params)
+    coords, ret = jm.apply(params, **batch, return_aux_logits=True)
+    with torch.inference_mode():
+        pc, pret = pm(**torch_batch(batch), return_aux_logits=True)
+    v = slice(0, valid)
+    close(np.asarray(coords)[:, v], pc[:, v], atol=COORDS_ATOL)
+    close(np.asarray(ret.distance)[:, v, v], pret.distance[:, v, v])
+
+
 def test_unrolled_depth1_bridge():
     """An unrolled (depth 1) trunk's `net/layers_0` params bridge too."""
     rng = np.random.default_rng(11)
@@ -431,7 +459,11 @@ def test_port_imports_no_jax():
                     "alphafold2_tpu_torch/cache/features.py",
                     "alphafold2_tpu_torch/cache/checkpoints.py",
                     "alphafold2_tpu_torch/fleet/object_store.py",
-                    "alphafold2_tpu_torch/scripts/fold_synthetic.py"):
+                    "alphafold2_tpu_torch/scripts/fold_synthetic.py",
+                    "alphafold2_tpu_torch/serve/scheduler.py",
+                    "alphafold2_tpu_torch/serve/cuda_errors.py",
+                    "alphafold2_tpu_torch/serve/features.py",
+                    "alphafold2_tpu_torch/serve/meshpolicy.py"):
         assert covered in names, covered
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert not bad, bad

@@ -217,13 +217,58 @@ def test_head_width_pad_is_exact_with_the_plain_standing_in(d):
         torch.testing.assert_close(g, r, rtol=0, atol=1e-6)
 
 
-def test_head_width_above_128_raises():
-    """D > 128 has no kernel instance: the card's route raises naming the
-    width (ROADMAP queue 3), while the CPU's plain version runs it."""
-    assert [pt_attn.kernel_head_dim(d) for d in (1, 16, 17, 64, 65, 128)] \
+@pytest.mark.parametrize("d", [160, 192, 256, 384])
+def test_head_width_above_128_takes_the_sliced_route(d, monkeypatch):
+    """D > 128 launches on the kernels' sliced path, at the next multiple
+    of 128. With the plain versions standing in for the launches, K1's
+    route (q/k/v zero-padded, launched, sliced back) equals
+    `attention_reference`, gradients included, and K2's route equals
+    K2's plain version on the unpadded inputs; each launch sees the
+    padded width, which the kernels take as it is."""
+    from alphafold2_tpu_torch.ops import block_sparse as pt_bs
+    assert [pt_attn.kernel_head_dim(w) for w in (1, 16, 17, 64, 65, 128)] \
         == [16, 16, 32, 64, 128, 128]
-    for d in (129, 256):
+    width = pt_attn.kernel_head_dim(d)
+    assert width == -(-d // 128) * 128 and width >= d
+    pt_attn.check_head_dim(width)            # the kernels take it as it is
+    if d % 128:
         with pytest.raises(ValueError, match=f"head width {d}"):
-            pt_attn.kernel_head_dim(d)
-    q = torch.zeros(2, 4, 256)
-    assert pt_attn.fused_attention(q, q, q).shape == (2, 4, 256)
+            pt_attn.check_head_dim(d)
+    rng = np.random.default_rng(d)
+    b, heads, rep, n = 4, 2, 2, 32
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, n, d))
+                                .astype(np.float32)).requires_grad_()
+               for _ in range(3))
+    bias = torch.from_numpy(rng.normal(size=(heads, n, n)).astype(np.float32))
+    qm = torch.from_numpy(rng.random((b // heads, n)) > 0.2)
+    km = torch.from_numpy(rng.random((b // heads, n)) > 0.2)
+    widths = []
+
+    def k1_stand_in(q, k, v, *args, **kw):
+        widths.append(q.shape[-1])
+        return pt_attn.attention_reference(q, k, v, *args, **kw)
+
+    kw = dict(heads=heads, bias_repeat=rep)
+    out = pt_attn.pad_head_dim(k1_stand_in, q, k, v, bias, qm, km, **kw)
+    ref = pt_attn.attention_reference(q, k, v, bias, qm, km, **kw)
+    assert widths == [width] and out.shape == ref.shape
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    grads = torch.autograd.grad(out.sum(), (q, k, v))
+    ref_grads = torch.autograd.grad(ref.sum(), (q, k, v))
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-6)
+
+    def k2_stand_in(q, k, v, plan, **kw):
+        widths.append(q.shape[-1])
+        return pt_bs.block_sparse_reference(q, k, v, plan, **kw)
+
+    monkeypatch.setattr(pt_bs, "_launch", k2_stand_in)
+    plan = pt_bs.BlockPlan.build(pt_bs.banded_block_pattern(n // 16, 0, 1),
+                                 16, "cpu")
+    q, k, v = (x.detach() for x in (q, k, v))
+    kw = dict(bias=bias, bias_repeat=rep, k_mask=km, heads=heads,
+              scale=None)
+    out = pt_bs.kernel_route(q, k, v, plan, **kw)
+    ref = pt_bs.block_sparse_reference(q, k, v, plan, **kw)
+    assert widths == [width, width] and out.shape == ref.shape
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)

@@ -73,6 +73,22 @@ class ModelConfig:
                 "window": self.sparse_window}
 
 
+
+def draft_preset(base: ModelConfig) -> ModelConfig:
+    """The draft-tier config derived from a flagship config: half the
+    width, a third of the depth (floored at 1) and half the structure
+    module, as the JAX package's `draft_preset`. The architecture,
+    attention menu and structure module stay the flagship's, so every
+    serving path (bucketing, kernel policy, memory planning) works on
+    the draft unchanged. The draft is a different model with different
+    weights; the cascade keys its cache entries apart by `model_tag`."""
+    return dataclasses.replace(
+        base,
+        dim=max(base.dim // 2, 1),
+        depth=max(base.depth // 3, 1),
+        structure_module_depth=max(base.structure_module_depth // 2, 1),
+    )
+
 @dataclass
 class DataConfig:
     crop_len: int = 128

@@ -24,8 +24,16 @@ The serving stack, bottom-up:
 - cuda_errors:  classify/attributed_rows — the CUDA error payload
                 parser behind RetryPolicy(xla_classify=True)
 - faults:       FaultPlan — seeded chaos injection
-
-Not ported yet (ROADMAP.md): bulk, cascade, preemption.
+- bulk:         BulkPolicy/BulkQueue — the background QoS tier,
+                admitted only by work stealing and gated by the SLO
+                engine's online burn rate (`Scheduler(bulk=...)`)
+- cascade:      CascadePolicy/build_draft_scheduler — a small draft
+                tier in front of the flagship, judged by a confidence
+                gate (`Scheduler(cascade=...)`; `config.draft_preset`
+                derives the draft's widths)
+- preemption:   PreemptionWatcher and its notice sources (file,
+                signal, metadata URL) — a spot reclaim announced to
+                `Scheduler.preempt_notice`
 
 Minimal use:
 
@@ -47,6 +55,9 @@ from alphafold2_tpu_torch.obs import (MetricsRegistry, Tracer,  # noqa: F401
                                       get_registry, prometheus_text)
 from alphafold2_tpu_torch.serve.bucketing import (  # noqa: F401
     BucketPolicy, default_policy)
+from alphafold2_tpu_torch.serve.bulk import BulkPolicy, BulkQueue  # noqa: F401
+from alphafold2_tpu_torch.serve.cascade import (  # noqa: F401
+    CascadePolicy, build_draft_scheduler)
 from alphafold2_tpu_torch.serve.confidence import (  # noqa: F401
     ConfidenceGate, ConfidenceScore, distogram_entropy, plddt_score,
     score_response)
@@ -63,6 +74,9 @@ from alphafold2_tpu_torch.serve.meshpolicy import (  # noqa: F401
     FoldMemoryModel, MeshPolicy, SliceLease)
 from alphafold2_tpu_torch.serve.metrics import (  # noqa: F401
     KeyFrequencyLog, ServeMetrics)
+from alphafold2_tpu_torch.serve.preemption import (  # noqa: F401
+    FileNoticeSource, MetadataNoticeSource, PreemptionNotice,
+    PreemptionWatcher, SignalNoticeSource)
 from alphafold2_tpu_torch.serve.recycle import RecyclePolicy  # noqa: F401
 from alphafold2_tpu_torch.serve.request import (  # noqa: F401
     FoldProgress, FoldRequest, FoldResponse, FoldTicket)

@@ -531,14 +531,7 @@ class Scheduler:
                 self._boot_survivors = 0
         # bulk tier: lowest-QoS sweep work admitted only by
         # work-stealing through the continuous-admission front, gated
-        # by online burn rate. Its queue (serve/bulk.py) is not ported
-        # yet, so the port refuses a bulk policy instead of serving
-        # without one
-        if bulk is not None:
-            raise NotImplementedError(
-                "Scheduler(bulk=...) needs serve/bulk.py (BulkQueue), "
-                "which the port does not have yet (ROADMAP queue 1, "
-                "step C)")
+        # by online burn rate. OFF when None — byte-identical stats
         self.bulk = bulk
         self._bulk_queue = None
         self._n_bulk_admits = 0
@@ -546,6 +539,21 @@ class Scheduler:
         self._n_bulk_rejected = 0
         self._bulk_gated_flag = False
         self._bulk_last_check = 0.0
+        if bulk is not None:
+            from alphafold2_tpu_torch.serve.bulk import BulkQueue
+            self._bulk_queue = BulkQueue()
+            self._c_bulk_admits = reg.counter(
+                "serve_bulk_admits_total",
+                "bulk-QoS requests admitted into fold batches (stolen "
+                "freed rows or idle-founded batches)")
+            self._c_bulk_yields = reg.counter(
+                "serve_bulk_yields_total",
+                "in-flight bulk rows that checkpointed-and-yielded at "
+                "an admission gap because online burn crossed "
+                "BulkPolicy.max_burn")
+            self._g_bulk_gated = reg.gauge(
+                "serve_bulk_gated",
+                "1 while bulk admission is gated by online burn rate")
         # speculative cascade: draft-first folding with a
         # confidence gate, escalation through this very submit seam.
         # OFF when None — the default, byte-identical stats and

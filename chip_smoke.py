@@ -101,6 +101,35 @@ Phases, each of which fails the run (nonzero exit, no result line):
    transient error (retried, ok), a poison input ("poisoned" while its
    batch-mate is ok) and a host-side latency that fires the watchdog
    (executor rebuilt, ok);
+9b. fleet: an `InProcessFleet` of two replicas on the card over the
+   same model (default buckets and `KernelPolicy`, batches of two), a
+   `FrontDoorServer` on 127.0.0.1 before each replica's Scheduler and
+   `HttpTransport` clients: the scheduler phase's six lengths split over
+   the two doors (the 512-bucket ones alternate, the 256-bucket ones go
+   alternately to their key's owner and to the other replica, which
+   forwards), then a twin of each 256-bucket request sent as an
+   already-forwarded hop to the replica not owning its key (served from
+   its cache: its own memory, or the owner's peer tier), then a rollout
+   (`bump_model_tag`) after which a peer fetch under the old tag gets
+   409, and one more request; every ticket ok, K1 and K2 launched,
+   forwards, peer hits and 409s each at least one; each ticket's
+   submit-to-resolve time in completion order and the peak memory;
+9c. serve-tiers: one Scheduler over the same model with the SLO engine,
+   the bulk tier (`BulkPolicy` over step-mode recycling), the cascade (a
+   draft Scheduler over `draft_preset(ModelConfig())`, dim 128, depth 2,
+   sharing the FoldCache under its own tag) and a `PreemptionWatcher` on
+   a `FileNoticeSource`: the six lengths and one of 100 residues online
+   (each folds on the draft first, then is accepted or escalated) and
+   two bulk requests; the SLO report, bulk admits and yields, draft
+   decisions, completion times; then the notice file, after which the
+   scheduler is in reclaim mode and refuses submits;
+9d. procfleet: two replica processes (`python -m
+   alphafold2_tpu_torch.fleet.procfleet`, the JAX replica widths: dim
+   32, depth 1, heads 2, dim_head 16, so K1 at D = 16) on the card,
+   loading the kernels phase 2 built: four folds through the front
+   doors (`FleetClient`), kill -9 of one, a `FleetController` reconcile
+   that restores the quorum with a new replica, one more fold, and
+   SIGTERM, after which each live replica exits 0;
 10. train-check: K1's autograd (the kernel forward, the backward's plain
    recompute) against the plain version's autograd at the train step's
    triangle, MSA row and MSA column shapes, fp32 and bf16 (gradients
@@ -142,6 +171,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1893,6 +1923,395 @@ TRAIN_K1_SHAPES = ("triangle", "msa_row", "msa_col")
 TRAIN_STEPS = 30
 
 
+# the fleet phases: the scheduler phase's lengths over two replicas, the
+# serving tiers on one Scheduler, and two replica processes
+FLEET_LENGTHS = SCHED_LENGTHS
+FLEET_BULK_LENGTHS = (256, 200)
+FLEET_CASCADE_LENGTH = 100
+# the replica processes' JAX widths (heads 2, dim_head 16; K1 at D = 16)
+PROC_MODEL = {"dim": 32, "depth": 1, "msa_depth": 3}
+PROC_BUCKETS = (32, 64)
+PROC_LENGTHS = (24, 57, 31, 64)
+
+
+def peak_gib():
+    """The card's peak allocated memory since the last reset, in GiB."""
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def reset_peak():
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def reset_launches():
+    from alphafold2_tpu_torch.ops import attention as attn
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    torch.cuda.synchronize()
+    attn.launch_count.reset()
+    bs.launch_count.reset()
+
+
+def read_launches():
+    """(K1, K2) launches since the last reset_launches()."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    torch.cuda.synchronize()
+    return attn.launch_count.value, bs.launch_count.value
+
+
+def require_launches(phase, k1, k2):
+    """A phase that folds in both buckets launched both kernels."""
+    if k1 <= 0 or k2 <= 0:
+        raise AssertionError(f"{phase}: K1 launched {k1} and K2 {k2} "
+                             f"times; both must be positive")
+
+
+def outcome_counts(registry, name, labels):
+    """{label value: count} of one counter of `registry`."""
+    return {s["labels"][labels[-1]]: s["value"] for s in
+            registry.counter(name, "", labels).samples()}
+
+
+def completion_ms(done):
+    """(length, source, ms) of each ticket in completion order."""
+    return [list(x) for x in sorted(done, key=lambda x: x[2])]
+
+
+def phase_fleet(model, cfg):
+    """An InProcessFleet of two replicas on the card, each a FoldExecutor
+    over the default ModelConfig with the default buckets and
+    KernelPolicy (the 512 bucket on K2), a FrontDoorServer on 127.0.0.1
+    in front of each replica's Scheduler, and HttpTransport clients. The
+    FLEET_LENGTHS requests split across the two doors: the 512-bucket
+    ones alternate, the 256-bucket ones go alternately to the replica
+    owning their key (folded there) and to the other one (forwarded).
+    Then a twin of each 256-bucket request goes, as a request that has
+    taken its one hop (as a replica with a stale ring would send it), to
+    the replica that does not own it: it may not forward again, so it is
+    served from that replica's cache — its own memory when it forwarded
+    the original, else the owner's peer tier. Then a rollout
+    (`bump_model_tag`), after which a peer fetch under the old tag gets
+    409. Returns the numbers it printed."""
+    from alphafold2_tpu_torch import fleet, serve
+    edges = serve.default_policy().edges
+    registry = serve.MetricsRegistry()
+    tag = f"chip_smoke-fleet-seed{SEED}"
+    fl = fleet.InProcessFleet(
+        lambda: serve.FoldExecutor(model), serve.BucketPolicy(edges),
+        serve.SchedulerConfig(max_batch_size=2, msa_depth=MSA_ROWS,
+                              num_recycles=NUM_RECYCLES),
+        n_replicas=2, model_tag=tag, registry=registry,
+        kernel_policy=serve.KernelPolicy.from_model_config(cfg, edges))
+    reqs = serve_requests(FLEET_LENGTHS, SEED + 9)
+    doors = []
+    out = {}
+    with fl:
+        t0 = time.perf_counter()
+        fresh = fl.warmup()
+        warm_s = time.perf_counter() - t0
+        try:
+            for r in fl.replicas:
+                doors.append(fleet.FrontDoorServer(
+                    r.scheduler, rollout=fl.registry.rollout,
+                    replica_id=r.replica_id, metrics=registry).start())
+            clients = [fleet.HttpTransport(d.url, rollout=fl.registry.rollout,
+                                           metrics=registry) for d in doors]
+            reset_peak()
+            reset_launches()
+            t0 = time.perf_counter()
+            done, lock = [], threading.Lock()
+
+            def send(req, door, kind):
+                sent = time.perf_counter()
+                ticket = clients[door].submit(req)
+
+                def mark(resp):
+                    with lock:
+                        done.append((req.length, f"{kind}:{resp.source}",
+                                     round((time.perf_counter() - sent)
+                                           * 1e3, 1)))
+                ticket.add_done_callback(mark)
+                return ticket
+
+            keys = [fl.replicas[0].scheduler._cache_key_for(r)
+                    for r in reqs]
+            owner = [int(fl.replicas[0].router.owner_for(k)[1:])
+                     for k in keys]
+            short = [i for i, r in enumerate(reqs) if r.length <= BUCKET]
+            entry = [(owner[i] if short.index(i) % 2 == 0
+                      else 1 - owner[i]) if i in short else i % 2
+                     for i in range(len(reqs))]
+            first = [(r, d, send(r, d, "burst"))
+                     for r, d in zip(reqs, entry)]
+            first = [(r, door, t.result(timeout=600))
+                     for r, door, t in first]
+            twins = [(reqs[i], 1 - owner[i]) for i in short]
+            second = [(r, send(serve.FoldRequest(seq=r.seq.copy(),
+                                                 msa=r.msa.copy(),
+                                                 forwarded=True),
+                               other, "twin")) for r, other in twins]
+            second = [(r, t.result(timeout=600)) for r, t in second]
+            traffic_s = time.perf_counter() - t0
+            k1, k2 = read_launches()
+            peak = peak_gib()
+            epoch = fl.bump_model_tag(f"{tag}@v2")
+            straggler = fleet.PeerCacheClient(
+                fl.registry, "r0", metrics=serve.MetricsRegistry(),
+                rollout=fleet.RolloutState(tag,
+                                           registry=serve.MetricsRegistry()))
+            stale = [straggler.get(keys[i]) for i in short]
+            after = serve_requests((131,), SEED + 10)[0]
+            after_resp = send(after, 0, "after-rollout").result(timeout=600)
+        finally:
+            for d in doors:
+                d.stop()
+    stats = fl.stats()
+    served = outcome_counts(registry, "fleet_peer_served_total",
+                            ("replica", "outcome"))
+    forwards = sum(outcome_counts(registry, "fleet_forwards_total",
+                                  ("peer",)).values())
+    bad = [(r.length, resp.status, resp.source, resp.error)
+           for r, _, resp in first if not resolved_ok(resp, r)]
+    bad += [(r.length, resp.status, resp.source, resp.error)
+            for r, resp in second if not resolved_ok(resp, r, "cache")]
+    if not resolved_ok(after_resp, after):
+        bad.append((after.length, after_resp.status, after_resp.source,
+                    after_resp.error))
+    if bad:
+        raise AssertionError(f"fleet responses not ok: {bad}")
+    peer_hits = stats["aggregate"]["peer_hits"]
+    log(f"fleet warm-up: {fresh} programs built in {warm_s:.2f} s")
+    log(f"fleet traffic {list(FLEET_LENGTHS)} over two front doors, then "
+        f"{len(second)} twins at the non-owner: {len(first) + len(second)} "
+        f"tickets ok in {traffic_s:.2f} s; submit-to-resolve (ms) in "
+        f"completion order {completion_ms(done[:len(first) + len(second)])}")
+    log(f"fleet: sources {[resp.source for _, _, resp in first]} then "
+        f"{[resp.source for _, resp in second]}; forwards {forwards}, peer "
+        f"hits {peer_hits}, rollout to epoch {epoch}: old-tag fetches "
+        f"{['miss' if s is None else 'hit' for s in stale]}, peer 409s "
+        f"{served.get('stale_tag', 0)}, after the rollout "
+        f"{after_resp.source}; K1 launches {k1}, K2 launches {k2}; peak "
+        f"memory {peak:.3f} GiB; aggregate {stats['aggregate']}")
+    require_launches("fleet", k1, k2)
+    if forwards < 1 or peer_hits < 1 or served.get("stale_tag", 0) < 1 \
+            or any(s is not None for s in stale):
+        raise AssertionError(
+            f"fleet: forwards {forwards}, peer hits {peer_hits}, 409s "
+            f"{served.get('stale_tag', 0)}; each must be at least 1, and "
+            f"no old-tag fetch may hit")
+    out.update(k1_launches=k1, k2_launches=k2, forwards=forwards,
+               peer_hits=peer_hits, stale_409=served.get("stale_tag", 0),
+               completion_ms=completion_ms(done), traffic_s=traffic_s,
+               warmup_s=warm_s, peak_gib=peak,
+               sources=[resp.source for _, _, resp in first]
+               + [resp.source for _, resp in second])
+    return out
+
+
+def phase_serve_tiers(model, cfg):
+    """One Scheduler at the default ModelConfig on the card with the SLO
+    engine, the bulk tier (BulkPolicy over step-mode recycling, as
+    tests/test_bulk.py enables it), the cascade (a draft Scheduler over
+    `draft_preset(ModelConfig())`: dim 128, depth 2, sharing the
+    FoldCache under its own tag) and a PreemptionWatcher on a
+    FileNoticeSource. Traffic: the FLEET_LENGTHS requests and one more
+    (all online, so each folds on the draft first and is accepted or
+    escalated), and two bulk requests; then the notice file is written
+    and the scheduler must enter reclaim mode. Returns the numbers it
+    printed."""
+    import dataclasses
+    import tempfile
+
+    from alphafold2_tpu_torch import obs, serve
+    from alphafold2_tpu_torch.config import draft_preset
+    edges = serve.default_policy().edges
+    dcfg = dataclasses.replace(draft_preset(cfg), predict_coords=True)
+    draft_model = dcfg.build(device="cuda",
+                             generator=torch.Generator().manual_seed(SEED + 3))
+    perturb(draft_model, SEED + 4)
+    tag = f"chip_smoke-tiers-seed{SEED}"
+    reqs = serve_requests(FLEET_LENGTHS + (FLEET_CASCADE_LENGTH,), SEED + 11)
+    bulk = [serve.FoldRequest(seq=r.seq, msa=r.msa, qos="bulk") for r in
+            serve_requests(FLEET_BULK_LENGTHS, SEED + 12)]
+    with tempfile.TemporaryDirectory() as tmp:
+        registry = serve.MetricsRegistry()
+        cache = serve.FoldCache(registry=registry)
+        draft = serve.build_draft_scheduler(
+            serve.FoldExecutor(draft_model), serve.BucketPolicy(edges),
+            config=serve.SchedulerConfig(max_batch_size=2,
+                                         msa_depth=MSA_ROWS, num_recycles=1,
+                                         confidence_summary=True),
+            model_tag=f"{tag}#draft", cache=cache,
+            kernel_policy=serve.KernelPolicy.from_model_config(dcfg, edges))
+        slo = obs.SLOEngine(obs.SLOPolicy.parse(
+            "256=30000,512=60000,all=60000", window_s=600.0),
+            registry=registry)
+        sched = serve.Scheduler(
+            serve.FoldExecutor(model), serve.BucketPolicy(edges),
+            serve.SchedulerConfig(max_batch_size=2, msa_depth=MSA_ROWS,
+                                  num_recycles=NUM_RECYCLES),
+            serve.ServeMetrics(registry=registry), cache=cache,
+            model_tag=tag, registry=registry,
+            kernel_policy=serve.KernelPolicy.from_model_config(cfg, edges),
+            recycle_policy=serve.RecyclePolicy(converge_tol=0.0),
+            retry=serve.RetryPolicy(backoff_base_s=0.0, jitter=0.0),
+            slo=slo, bulk=serve.BulkPolicy(check_interval_s=0.0),
+            cascade=serve.CascadePolicy(draft=draft))
+        notice = os.path.join(tmp, "preempt.notice")
+        seen = []
+        with sched:
+            t0 = time.perf_counter()
+            fresh = sched.warmup() + draft.warmup()
+            warm_s = time.perf_counter() - t0
+            watcher = serve.PreemptionWatcher(
+                [serve.FileNoticeSource(notice, grace_s=30.0)],
+                scheduler=sched, on_notice=seen.append, poll_s=0.05).start()
+            reset_peak()
+            reset_launches()
+            t0 = time.perf_counter()
+            tickets = [(r, sched.submit(r)) for r in reqs + bulk]
+            resps = [(r, t.result(timeout=900)) for r, t in tickets]
+            traffic_s = time.perf_counter() - t0
+            k1, k2 = read_launches()
+            peak = peak_gib()
+            report = slo.report()
+            with open(notice, "w") as fh:
+                json.dump({"grace_s": 30.0, "detail": "chip_smoke"}, fh)
+            deadline = time.monotonic() + 30
+            while not seen and time.monotonic() < deadline:
+                time.sleep(0.05)
+            watcher.stop()
+            stats = sched.serve_stats()
+            try:
+                sched.submit(serve_requests((FLEET_CASCADE_LENGTH,),
+                                            SEED + 13)[0])
+                refused = False
+            except serve.DrainingError:
+                refused = True
+            complete = sched.drain(grace_s=10.0)
+    bad = [(r.length, resp.status, resp.source, resp.error)
+           for r, resp in resps if not resolved_ok(resp, r)]
+    if bad:
+        raise AssertionError(f"serve-tiers responses not ok: {bad}")
+    casc = stats["cascade"]
+    bulk_stats = stats["bulk"]
+    reclaim = stats.get("preemption", {})
+    done = completion_ms([(r.length, f"{r.qos}:{resp.tier or resp.source}",
+                           round(resp.latency_s * 1e3, 1))
+                          for r, resp in resps])
+    log(f"serve-tiers warm-up: {fresh} programs built in {warm_s:.2f} s; "
+        f"draft ModelConfig dim {dcfg.dim} depth {dcfg.depth} heads "
+        f"{dcfg.heads} dim_head {dcfg.dim_head}")
+    log(f"serve-tiers traffic {list(FLEET_LENGTHS) + [FLEET_CASCADE_LENGTH]}"
+        f" online (cascaded) + bulk {list(FLEET_BULK_LENGTHS)}: "
+        f"{len(resps)} tickets ok in {traffic_s:.2f} s; submit-to-resolve "
+        f"(ms) in completion order {done}")
+    log(f"serve-tiers: drafts accepted {casc['draft_accepted']}, escalated "
+        f"{casc['escalated']}, draft errors {casc['draft_errors']}, "
+        f"cross-tier hits {casc['cross_tier_hits']}; bulk admits "
+        f"{bulk_stats['admits']}, yields {bulk_stats['yields']}; K1 "
+        f"launches {k1}, K2 launches {k2}; peak memory {peak:.3f} GiB")
+    log(f"serve-tiers SLO report: {json.dumps(report['classes'])}")
+    log(f"serve-tiers preemption: notice {seen[0] if seen else None}, "
+        f"reclaiming {reclaim.get('reclaiming')}, submit refused "
+        f"{refused}, drain complete {complete}")
+    require_launches("serve-tiers", k1, k2)
+    if bulk_stats["admits"] != len(bulk) \
+            or casc["draft_accepted"] + casc["escalated"] < 1 \
+            or casc["cross_tier_hits"] != 0 or not report["classes"] \
+            or not seen or not reclaim.get("reclaiming") or not refused:
+        raise AssertionError(
+            f"serve-tiers: bulk {bulk_stats}, cascade {casc}, SLO classes "
+            f"{list(report['classes'])}, notice {seen}, reclaim {reclaim}, "
+            f"refused {refused}")
+    return {"k1_launches": k1, "k2_launches": k2,
+            "draft_accepted": casc["draft_accepted"],
+            "escalated": casc["escalated"],
+            "bulk_admits": bulk_stats["admits"],
+            "bulk_yields": bulk_stats["yields"],
+            "slo": report["classes"], "reclaiming": reclaim["reclaiming"],
+            "completion_ms": done, "traffic_s": traffic_s,
+            "warmup_s": warm_s, "peak_gib": peak}
+
+
+def phase_procfleet():
+    """Two replica processes (`python -m alphafold2_tpu_torch.fleet.
+    procfleet`) at the JAX package's replica widths on the card, which
+    load the kernels this process built. PROC_LENGTHS go through the
+    front doors (FleetClient); one replica is killed with -9, one
+    FleetController reconcile restores the quorum (a new replica), one
+    more request is served, and SIGTERM drains the live replicas, each
+    of which must exit 0."""
+    import tempfile
+
+    from alphafold2_tpu_torch import serve
+    from alphafold2_tpu_torch.fleet.controlplane import FleetController
+    from alphafold2_tpu_torch.fleet.procfleet import FleetClient, ProcFleet
+    from alphafold2_tpu_torch.fleet.scaling import ScalingPolicy
+    rng = np.random.default_rng(SEED + 14)
+    reqs = [serve.FoldRequest(
+        seq=rng.integers(0, 20, n).astype(np.int32),
+        msa=rng.integers(0, 20, (PROC_MODEL["msa_depth"], n)).astype(
+            np.int32)) for n in PROC_LENGTHS]
+    with tempfile.TemporaryDirectory() as tmp:
+        fl = ProcFleet(2, os.path.join(tmp, "run"), buckets=PROC_BUCKETS,
+                       model=dict(PROC_MODEL))
+        rcs, logs = None, {}
+        try:
+            t0 = time.perf_counter()
+            fl.start(timeout_s=300)
+            boot_s = time.perf_counter() - t0
+            client = FleetClient([h.frontdoor_url for h in fl.replicas],
+                                 result_timeout_s=120)
+            t0 = time.perf_counter()
+            resps = [client.fold(r, hint=i) for i, r in enumerate(reqs)]
+            traffic_s = time.perf_counter() - t0
+            devices = [fl.stats(i)["identity"] for i in range(2)]
+            killed_rc = fl.kill(1)
+            ctrl = FleetController(
+                fl, policy=ScalingPolicy(min_replicas=2, max_replicas=3,
+                                         cooldown_s=5.0),
+                probe_timeout_s=10.0, registry=serve.MetricsRegistry())
+            t0 = time.perf_counter()
+            rec = ctrl.reconcile()
+            fl.wait_ready([2], timeout_s=300)
+            healthy = ctrl.reconcile()["healthy"]
+            restore_s = time.perf_counter() - t0
+            last = client.fold(reqs[0], hint=1)
+        finally:
+            fl.stop(timeout_s=120)
+            rcs = [h.proc.returncode if h.proc is not None else None
+                   for h in fl.replicas]
+            for h in fl.replicas:
+                with open(h.log_path) as fh:
+                    logs[h.replica_id] = fh.read()[-4000:]
+    bad = [(r.length, resp.status, resp.error)
+           for r, resp in zip(reqs + [reqs[0]], resps + [last])
+           if not resolved_ok(resp, r)]
+    log(f"procfleet: two replicas (dim {PROC_MODEL['dim']}, depth "
+        f"{PROC_MODEL['depth']}, heads 2, dim_head 16, buckets "
+        f"{list(PROC_BUCKETS)}) ready in {boot_s:.2f} s; "
+        f"{len(resps)} folds {list(PROC_LENGTHS)} in {traffic_s:.2f} s "
+        f"({[resp.source for resp in resps]}); identities {devices}")
+    log(f"procfleet: kill -9 r1 (rc {killed_rc}); reconcile "
+        f"{rec['decision']['action']} ({rec['decision']['reason']}), "
+        f"actions {[a['verb'] for a in rec['actions']]}, healthy "
+        f"{healthy} after {restore_s:.2f} s; one more fold "
+        f"{last.status}; exit codes after SIGTERM {rcs}")
+    ready = [json.loads(line) for text in logs.values()
+             for line in text.splitlines() if line.startswith('{"ready"')]
+    log(f"procfleet: replicas ready on {[r['device'] for r in ready]}")
+    if bad or healthy != 2 or rec["decision"]["action"] != "scale_up" \
+            or rcs[0] != 0 or rcs[2] != 0 or killed_rc >= 0 \
+            or len(ready) != 3 \
+            or any(not r["device"].startswith("cuda") for r in ready):
+        raise AssertionError(f"procfleet: bad folds {bad}, healthy "
+                             f"{healthy}, exit codes {rcs}; logs {logs}")
+    return {"boot_s": boot_s, "traffic_s": traffic_s,
+            "restore_s": restore_s, "exit_codes": rcs}
+
+
 def attention_grads(fn, kw, dtype, cot):
     """Gradients of sum(fn(...) * cot) with respect to q, k, v (in
     `dtype`) and the fp32 bias."""
@@ -2181,7 +2600,10 @@ def main(argv=None):
         f"{SPARSE_BUCKET} ({spec.label})")
     del ex
     sched = run("scheduler", phase_scheduler, model, cfg)
+    fleet_out = run("fleet", phase_fleet, model, cfg)
+    tiers = run("serve-tiers", phase_serve_tiers, model, cfg)
     del model
+    procfleet = run("procfleet", phase_procfleet)
     grad_worst = run("train-check", phase_train_check)
     train = run("train", phase_train)
     recycled = run("train-recycled", phase_train_recycled)
@@ -2219,6 +2641,11 @@ def main(argv=None):
         **sliced_record(edges, "fused_attention"),
         "launches_scheduler": sched["k1_launches"],
         "scheduler": sched,
+        "launches_fleet": fleet_out["k1_launches"],
+        "launches_serve_tiers": tiers["k1_launches"],
+        "fleet": fleet_out,
+        "serve_tiers": tiers,
+        "procfleet": procfleet,
         **timing,
     }, {
         "name": "block_sparse_attention",
@@ -2233,6 +2660,8 @@ def main(argv=None):
         "max_err_bf16": bs_worst[torch.bfloat16],
         **sliced_record(edges, "block_sparse"),
         "launches_scheduler": sched["k2_launches"],
+        "launches_fleet": fleet_out["k2_launches"],
+        "launches_serve_tiers": tiers["k2_launches"],
         **bs_timing,
     }]}
     print(json.dumps(record), flush=True)

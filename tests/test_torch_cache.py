@@ -52,20 +52,24 @@ PORT = types.SimpleNamespace(cache=pt_cache, bytestore=pt_bytestore,
 def both(scenario, tmp_path):
     """Run `scenario(pkg, dir)` on each package; their observations must
     be equal."""
+    Clock.start = time.time()
     ref = scenario(JAX, tmp_path / "jax")
     out = scenario(PORT, tmp_path / "port")
     assert out == ref
     return out
 
 
-T0 = time.time()
-
-
 class Clock:
-    """A settable wall clock (disk TTLs compare it with file times)."""
+    """A settable wall clock (disk TTLs compare it with file times). Every
+    clock of one `both()` call starts at the wall time that call began:
+    the two packages see the same times, and a start fixed when the module
+    was imported would fall behind the files' times by however long the
+    tests before it ran (a TTL then never expires)."""
+
+    start = time.time()
 
     def __init__(self):
-        self.now = T0
+        self.now = Clock.start
 
     def __call__(self):
         return self.now

@@ -724,3 +724,48 @@ def test_cuda_scheduler_matches_cpu_fold(cuda_device):
         err = float(np.abs(resp.coords - ref.coords[i, :r.length].numpy())
                     .max())
         assert err <= 1e-3, err
+
+
+@pytest.mark.gpu
+def test_cuda_in_process_fleet_launches_k1_on_both_replicas(cuda_device):
+    """A two-replica InProcessFleet on the card (dim 32, depth 1, heads 2,
+    dim_head 16, bucket 32): a request folded by each replica launches
+    K1 4 times a layer and pass in that replica's fold, and a duplicate
+    submitted to the replica that does not own its key is forwarded to
+    the owner and resolves with source "forwarded"."""
+    from alphafold2_tpu_torch import Alphafold2, fleet, serve
+    from alphafold2_tpu_torch.data.synthetic import synthetic_requests
+
+    model = Alphafold2(dim=32, depth=1, heads=2, dim_head=16,
+                       predict_coords=True,
+                       generator=torch.Generator().manual_seed(0))
+    fl = fleet.InProcessFleet(
+        lambda: serve.FoldExecutor(model), serve.BucketPolicy((32,)),
+        serve.SchedulerConfig(max_batch_size=1, max_wait_ms=5.0,
+                              msa_depth=3, num_recycles=1),
+        n_replicas=2, model_tag="gpu-fleet",
+        registry=serve.MetricsRegistry())
+    reqs = synthetic_requests(np.random.default_rng(8), num=12,
+                              lengths=(24,) * 12, msa_depth=3)
+    with fl:
+        router = fl.replicas[0].router
+        sched = fl.replicas[0].scheduler
+        owner = {}
+        for r in reqs:
+            owner.setdefault(router.owner_for(sched._cache_key_for(r)), r)
+        assert set(owner) == {"r0", "r1"}
+        for rid, r in sorted(owner.items()):
+            replica = int(rid[1:])
+            torch.cuda.synchronize()
+            pt_attn.launch_count.reset()
+            resp = fl.submit(r, replica=replica).result(timeout=300)
+            torch.cuda.synchronize()
+            assert resp.status == "ok" and resp.source == "fold"
+            assert np.isfinite(resp.coords).all()
+            assert pt_attn.launch_count.value == 4 * 1 * 2
+        dup = owner["r1"]
+        twin = serve.FoldRequest(seq=dup.seq.copy(), msa=dup.msa.copy())
+        got = fl.submit(twin, replica=0).result(timeout=300)
+    assert got.status == "ok" and got.source == "forwarded"
+    np.testing.assert_array_equal(got.coords, fl.replicas[1].cache.get(
+        sched._cache_key_for(dup)).coords)

@@ -463,7 +463,20 @@ def test_port_imports_no_jax():
                     "alphafold2_tpu_torch/serve/scheduler.py",
                     "alphafold2_tpu_torch/serve/cuda_errors.py",
                     "alphafold2_tpu_torch/serve/features.py",
-                    "alphafold2_tpu_torch/serve/meshpolicy.py"):
+                    "alphafold2_tpu_torch/serve/meshpolicy.py",
+                    "alphafold2_tpu_torch/obs/slo.py",
+                    "alphafold2_tpu_torch/serve/bulk.py",
+                    "alphafold2_tpu_torch/serve/cascade.py",
+                    "alphafold2_tpu_torch/serve/preemption.py",
+                    "alphafold2_tpu_torch/fleet/registry.py",
+                    "alphafold2_tpu_torch/fleet/rpc.py",
+                    "alphafold2_tpu_torch/fleet/router.py",
+                    "alphafold2_tpu_torch/fleet/peer.py",
+                    "alphafold2_tpu_torch/fleet/local.py",
+                    "alphafold2_tpu_torch/fleet/frontdoor.py",
+                    "alphafold2_tpu_torch/fleet/scaling.py",
+                    "alphafold2_tpu_torch/fleet/controlplane.py",
+                    "alphafold2_tpu_torch/fleet/procfleet.py"):
         assert covered in names, covered
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert not bad, bad

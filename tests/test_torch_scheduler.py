@@ -432,12 +432,3 @@ def test_step_checkpoint_and_resume(executors, tmp_path):
     assert got["recycles"] == [2, 2]
     assert got["counters"]["resilience.checkpoint_resumes"] == 1
     assert got["counters"]["resilience.recycles_lost"] == 0
-
-
-def test_bulk_policy_is_refused_until_its_queue_is_ported(executors,
-                                                          tmp_path):
-    """The bulk tier's queue (serve/bulk.py) is not ported: a bulk policy
-    is refused at construction, naming the missing module, instead of
-    failing on an import once traffic arrives."""
-    with pytest.raises(NotImplementedError, match="serve/bulk.py"):
-        make("port", executors, tmp_path, bulk=object())

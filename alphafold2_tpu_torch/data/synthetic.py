@@ -116,6 +116,37 @@ def synthetic_requests(
     return requests
 
 
+def threefry_requests(
+    seed: int,
+    num: int = 32,
+    lengths=(24, 48, 96),
+    msa_depth: int = 3,
+    deadline_s=None,
+    priority_levels: int = 1,
+):
+    """The requests the JAX package's `synthetic_requests` draws from
+    `jax.random.PRNGKey(seed)`, token for token (int32 tokens; the key
+    splits three ways per request, as there): the serving tools of both
+    packages then fold the same traffic."""
+    from alphafold2_tpu_torch.data import threefry
+    from alphafold2_tpu_torch.serve.request import FoldRequest
+
+    key = threefry.key(seed)
+    requests = []
+    for i in range(num):
+        k_seq, k_msa, key = threefry.split(key, 3)
+        n = int(lengths[i % len(lengths)])
+        seq = threefry.randint(k_seq, (n,), 0, constants.NUM_AMINO_ACIDS)
+        msa = None
+        if msa_depth > 0:
+            msa = threefry.randint(k_msa, (msa_depth, n), 0,
+                                   constants.NUM_AMINO_ACIDS)
+        requests.append(FoldRequest(
+            seq=seq, msa=msa, deadline_s=deadline_s,
+            priority=i % max(priority_levels, 1)))
+    return requests
+
+
 def pad_to(x: torch.Tensor, target_len: int, axis: int = 1,
            value: float = 0) -> torch.Tensor:
     """Pad one axis at its end to a fixed crop size."""

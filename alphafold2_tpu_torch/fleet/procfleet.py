@@ -1134,8 +1134,11 @@ def replica_main(config: dict) -> int:
                     rid)
             except Exception:
                 manifest = None
-        frontdoor.stop()
-        peer_server.stop()
+        # no graceful stop of the two HTTP servers here: shutdown waits
+        # out each serve loop's poll interval and closing joins the
+        # handlers of in-flight long-polls, which overran the reserve
+        # on the card and turned a clean exit into -9; os._exit below
+        # closes their sockets anyway
         tracer.close()
         print(json.dumps({
             "preempted": rid, "complete": complete,

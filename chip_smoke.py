@@ -130,6 +130,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
    doors (`FleetClient`), kill -9 of one, a `FleetController` reconcile
    that restores the quorum with a new replica, one more fold, and
    SIGTERM, after which each live replica exits 0;
+9e. loadtest: the port's load test (`alphafold2_tpu_torch.tools.
+   serve_loadtest`, called in-process) at the default ModelConfig
+   (`--preset default`): four closed-loop threads submit 64 requests
+   of 131 to 512 residues (a quarter Zipf duplicates, cache on) to one
+   Scheduler with batches of two, 5 MSA rows, 3 recycles and the 512
+   bucket on K2 (block 32, window 1, one global block); --smoke must
+   pass (no shed, error, timeout or rejection; the cache hits), K1 and
+   K2 must launch exactly as the metrics JSONL's batches, the two
+   warm-up runs and the numerics check's one K2 call give, K2's
+   serving-time numerics (bf16, against the plain attention in fp32)
+   within 2e-2, and `obs_report --check --prom` must pass on the run's
+   trace and exposition; folds/hour, warm-up, latency p50/p99 by
+   bucket, padding waste, cache hits, coalesced and peak memory;
+9f. loadtest-chaos: the same tool at the default model in the 256
+   bucket under the default seeded fault plan (10 % transient executor
+   faults, one poison): --smoke's chaos checks (every ticket terminal,
+   every innocent request ok, exactly one poisoned, cornered within
+   log2(max_batch)+1 executions);
+9g. loadtest-fleet: two in-process replicas on the card (routing, the
+   peer tier, a rollout halfway), 3 recycles: zero stale-tag hits, at
+   least one forward, K1 96 per batch and warm-up over both replicas;
 10. train-check: K1's autograd (the kernel forward, the backward's plain
    recompute) against the plain version's autograd at the train step's
    triangle, MSA row and MSA column shapes, fp32 and bf16 (gradients
@@ -165,6 +186,8 @@ one card in one call.
 """
 
 import argparse
+import contextlib
+import io
 import itertools
 import json
 import os
@@ -2312,6 +2335,178 @@ def phase_procfleet():
             "restore_s": restore_s, "exit_codes": rcs}
 
 
+# the load-test phases: the port's serve_loadtest at the default
+# ModelConfig (--preset default) under closed-loop traffic
+LOADTEST_ARGS = {
+    "loadtest": [
+        "--requests", "64", "--concurrency", "4",
+        "--lengths", "131,200,256,300,437,512", "--buckets", "256,512",
+        "--msa-depth", "5", "--max-batch", "2", "--max-wait-ms", "25",
+        "--num-recycles", "3", "--dup-rate", "0.25", "--cache", "on",
+        "--kernel-policy", "512=blocksparse", "--sparse-block", "32",
+        "--sparse-window", "1", "--sparse-global", "1"],
+    "loadtest-chaos": [
+        "--requests", "24", "--lengths", "131,200,256", "--buckets", "256",
+        "--dup-rate", "0.5", "--chaos"],
+    "loadtest-fleet": [
+        "--replicas", "2", "--fleet", "on", "--rollout-at", "0.5",
+        "--requests", "24", "--lengths", "131,200,256", "--buckets", "256",
+        "--num-recycles", "3", "--dup-rate", "0.5"],
+}
+# K1 launches per pass of the default model: 6 layers x 4 attentions in
+# the 256 bucket; in the 512 bucket under the default pattern the MSA
+# column attention stays on K1 (6) and the other three take K2 (18)
+K1_PER_PASS = {256: 24, 512: 6}
+K2_PER_PASS = {256: 0, 512: 18}
+
+
+def batches_per_bucket(*metrics_paths):
+    """{bucket: batches} from the ServeMetrics JSONL the load test
+    wrote (one record per executed batch)."""
+    out = {}
+    for path in metrics_paths:
+        with open(path) as fh:
+            for line in fh:
+                rec = json.loads(line)
+                if "bucket_len" in rec:
+                    b = int(rec["bucket_len"])
+                    out[b] = out.get(b, 0) + 1
+    return out
+
+
+def run_loadtest(name, tmp, extra=()):
+    """The port's serve_loadtest in this process at the default model,
+    with its trace, exposition and metrics in `tmp`; the launch counts
+    of the run (warm-up, traffic and the numerics check) beside its
+    report. Raises unless it exits 0 under --smoke."""
+    from alphafold2_tpu_torch.tools import serve_loadtest
+    paths = {k: os.path.join(tmp, f"{name}.{k}")
+             for k in ("jsonl", "traces.jsonl", "prom")}
+    argv = ["--preset", "default", "--smoke",
+            "--metrics-path", paths["jsonl"],
+            "--trace-path", paths["traces.jsonl"],
+            "--prom-path", paths["prom"], *LOADTEST_ARGS[name], *extra]
+    reset_peak()
+    reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve_loadtest.main(argv)
+    k1, k2 = read_launches()
+    peak = peak_gib()
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    report = json.loads(lines[-1]) if lines else None
+    if rc != 0 or report is None:
+        raise AssertionError(f"{name}: serve_loadtest exited {rc}: "
+                             f"{out.getvalue()[-3000:]}")
+    return report, k1, k2, peak, paths
+
+
+def loadtest_summary(report, peak):
+    """The numbers a load-test phase prints and records."""
+    keys = ("folds_per_hour", "requests_per_hour", "serving_wall_s",
+            "warmup_s", "padding_waste", "served", "batches",
+            "latency_by_bucket", "cache_hit_ratio", "coalesced",
+            "executor_calls_avoided", "hit_ratio", "cache_hits",
+            "forwards", "peer_hits", "retried", "poisoned")
+    return dict({k: report[k] for k in keys if k in report},
+                peak_gib=peak)
+
+
+def expected_launches(batches, warm, recycles, k2_numerics=0):
+    """(K1, K2) the path must launch: each batch and each warm-up run
+    (one per bucket and executor) is one opaque fold of 1 + recycles
+    passes; the numerics check adds its own K2 launches."""
+    runs = {b: batches.get(b, 0) + warm.get(b, 0) for b in K1_PER_PASS}
+    passes = 1 + recycles
+    return (sum(K1_PER_PASS[b] * passes * n for b, n in runs.items()),
+            sum(K2_PER_PASS[b] * passes * n for b, n in runs.items())
+            + k2_numerics)
+
+
+def phase_loadtest():
+    """The port's load test at full width: 64 closed-loop requests from
+    four threads over both buckets (the 512 bucket on K2), a quarter of
+    them Zipf duplicates served from the cache or coalesced. The launch
+    counts must equal what the metrics JSONL's batches (and the warm-up
+    of each bucket, and the numerics check's one K2 call) give; K2's
+    serving-time numerics at most 2e-2 in bf16; obs_report --check
+    --prom exits 0 on the run's files."""
+    import tempfile
+
+    from alphafold2_tpu_torch.tools import obs_report
+    with tempfile.TemporaryDirectory() as tmp:
+        report, k1, k2, peak, paths = run_loadtest("loadtest", tmp)
+        batches = batches_per_bucket(paths["jsonl"])
+        numerics = report["kernel"]["numerics_max_diff"]
+        want = expected_launches(batches, {256: 1, 512: 1}, 3,
+                                 k2_numerics=len(numerics))
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            check = obs_report.main([paths["traces.jsonl"], "--check",
+                                     "--prom", paths["prom"]])
+    # the waterfall (the report's head): where a request's time went
+    log("\n".join(text.getvalue().splitlines()[:16]))
+    summary = loadtest_summary(report, peak)
+    log(f"loadtest: {json.dumps(summary)}")
+    log(f"loadtest: batches {batches}, compiles {report['compiles']}, "
+        f"K1 {k1} / K2 {k2} launched (expected {want[0]} / {want[1]}), "
+        f"K2 numerics {numerics}, kernel folds "
+        f"{report['kernel']['folds']}, obs_report --check rc {check}")
+    if (k1, k2) != want or report["compiles"] != 2 \
+            or numerics.get("512", 1.0) > TOLERANCE[torch.bfloat16] \
+            or check != 0:
+        raise AssertionError(
+            f"loadtest: K1/K2 {k1}/{k2} launched, {want} expected from "
+            f"batches {batches}; numerics {numerics}; obs_report rc "
+            f"{check}")
+    return dict(summary, batches_per_bucket=batches, k1_launches=k1,
+                k2_launches=k2, numerics_max_diff=numerics,
+                kernel_folds=report["kernel"]["folds"])
+
+
+def phase_loadtest_chaos():
+    """The load test at full width under the default seeded fault plan
+    (10 % transient executor faults, one poison in raise mode): its own
+    --smoke checks decide — every ticket terminal, every innocent
+    request ok, exactly one poisoned, cornered within log2(max_batch)+1
+    batch executions."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        report, k1, k2, peak, _ = run_loadtest("loadtest-chaos", tmp)
+    chaos = report["chaos"]
+    summary = dict(loadtest_summary(report, peak),
+                   injected=chaos["injected"],
+                   poison_results=chaos["poison_results"])
+    log(f"loadtest-chaos: {json.dumps(summary)}; K1 {k1}, K2 {k2}")
+    return dict(summary, k1_launches=k1, k2_launches=k2)
+
+
+def phase_loadtest_fleet():
+    """The load test at full width through two in-process replicas
+    sharing the card, consistent-hash routing and the peer tier, with a
+    rollout halfway: zero stale-tag hits, at least one forward, and K1
+    launched per batch and warm-up, summed over both replicas."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        report, k1, k2, peak, paths = run_loadtest("loadtest-fleet", tmp)
+        batches = batches_per_bucket(
+            *[f"{paths['jsonl']}.r{i}" for i in range(2)])
+    want = expected_launches(batches, {256: 2}, 3)
+    summary = dict(loadtest_summary(report, peak),
+                   rollout=report["rollout"], batches_per_bucket=batches)
+    log(f"loadtest-fleet: {json.dumps(summary)}; K1 {k1} / K2 {k2} "
+        f"(expected {want[0]} / {want[1]})")
+    if report["rollout"]["stale_tag_hits"] != 0 \
+            or report["forwards"] < 1 or (k1, k2) != want \
+            or report["compiles"] != 2:
+        raise AssertionError(
+            f"loadtest-fleet: stale-tag hits "
+            f"{report['rollout']['stale_tag_hits']}, forwards "
+            f"{report['forwards']}, K1/K2 {k1}/{k2} against {want} from "
+            f"batches {batches}, compiles {report['compiles']}")
+    return dict(summary, k1_launches=k1, k2_launches=k2)
+
+
 def attention_grads(fn, kw, dtype, cot):
     """Gradients of sum(fn(...) * cot) with respect to q, k, v (in
     `dtype`) and the fp32 bias."""
@@ -2604,6 +2799,9 @@ def main(argv=None):
     tiers = run("serve-tiers", phase_serve_tiers, model, cfg)
     del model
     procfleet = run("procfleet", phase_procfleet)
+    loadtest = run("loadtest", phase_loadtest)
+    loadtest_chaos = run("loadtest-chaos", phase_loadtest_chaos)
+    loadtest_fleet = run("loadtest-fleet", phase_loadtest_fleet)
     grad_worst = run("train-check", phase_train_check)
     train = run("train", phase_train)
     recycled = run("train-recycled", phase_train_recycled)
@@ -2646,6 +2844,12 @@ def main(argv=None):
         "fleet": fleet_out,
         "serve_tiers": tiers,
         "procfleet": procfleet,
+        "launches_loadtest": loadtest["k1_launches"],
+        "launches_loadtest_chaos": loadtest_chaos["k1_launches"],
+        "launches_loadtest_fleet": loadtest_fleet["k1_launches"],
+        "loadtest": loadtest,
+        "loadtest_chaos": loadtest_chaos,
+        "loadtest_fleet": loadtest_fleet,
         **timing,
     }, {
         "name": "block_sparse_attention",
@@ -2662,6 +2866,9 @@ def main(argv=None):
         "launches_scheduler": sched["k2_launches"],
         "launches_fleet": fleet_out["k2_launches"],
         "launches_serve_tiers": tiers["k2_launches"],
+        "launches_loadtest": loadtest["k2_launches"],
+        "launches_loadtest_chaos": loadtest_chaos["k2_launches"],
+        "launches_loadtest_fleet": loadtest_fleet["k2_launches"],
         **bs_timing,
     }]}
     print(json.dumps(record), flush=True)

@@ -22,6 +22,8 @@ from alphafold2_tpu_torch.model import primitives as pt_prim
 from alphafold2_tpu_torch.ops import block_sparse as pt_bs
 from alphafold2_tpu_torch.ops.attention import (attention_reference,
                                                 kernel_head_dim)
+from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
+
 
 ATOL = 1e-5
 

@@ -39,6 +39,8 @@ from alphafold2_tpu_torch.obs import trace as pt_trace
 from alphafold2_tpu_torch.ops.block_sparse import KernelSpec
 from alphafold2_tpu_torch.utils.hashing import stable_digest as pt_digest
 from alphafold2_tpu_torch.weights import load_jax_params
+from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
+
 
 COORDS_ATOL = 1e-3
 JAX = types.SimpleNamespace(cache=jax_cache, bytestore=jax_bytestore,

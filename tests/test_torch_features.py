@@ -34,6 +34,8 @@ from alphafold2_tpu_torch.model import primitives as pt_prim
 from alphafold2_tpu_torch.ops.block_sparse import KernelSpec
 from alphafold2_tpu_torch.train import loop as pt_loop
 from alphafold2_tpu_torch.weights import load_jax_params
+from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
+
 
 DIM, HEADS, DIM_HEAD, N, B, ROWS, T, E = 32, 2, 16, 16, 2, 3, 2, 4
 LENGTHS = (12, 10)          # valid residues of the two batch rows

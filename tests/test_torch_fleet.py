@@ -40,6 +40,8 @@ from alphafold2_tpu_torch.fleet import rpc as pt_rpc
 from alphafold2_tpu_torch.obs.registry import MetricsRegistry as PtRegistry
 from test_torch_scheduler import executors  # noqa: F401  (module fixture)
 from test_torch_serve import N, ROWS
+from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
+
 
 COORD_ATOL = 1e-4
 SIDES = ("jax", "port")

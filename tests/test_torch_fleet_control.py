@@ -30,6 +30,8 @@ from alphafold2_tpu_torch.fleet import controlplane as pt_cp
 from alphafold2_tpu_torch.fleet import scaling as pt_scaling
 from alphafold2_tpu_torch.obs.registry import MetricsRegistry as PtRegistry
 from alphafold2_tpu_torch.serve.metrics import KeyFrequencyLog as PtKeyLog
+from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
+
 
 SIDES = ("jax", "port")
 FLEET = {"jax": jax_fleet, "port": pt_fleet}

@@ -769,3 +769,34 @@ def test_cuda_in_process_fleet_launches_k1_on_both_replicas(cuda_device):
     assert got.status == "ok" and got.source == "forwarded"
     np.testing.assert_array_equal(got.coords, fl.replicas[1].cache.get(
         sched._cache_key_for(dup)).coords)
+
+
+@pytest.mark.gpu
+def test_cuda_loadtest_blocksparse_launches_k2(cuda_device, tmp_path):
+    """The port's load test at the tiny preset on the card with every
+    bucket on the block-sparse policy (block 16): --smoke passes, K2
+    launches in the served folds and in the numerics check, and the
+    check agrees with the plain attention within 1e-3 (float32)."""
+    import contextlib
+    import io
+
+    from alphafold2_tpu_torch.ops import block_sparse as pt_bs
+    from alphafold2_tpu_torch.tools import serve_loadtest
+
+    torch.cuda.synchronize()
+    pt_bs.launch_count.reset()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve_loadtest.main([
+            "--requests", "12", "--lengths", "40,60,100", "--buckets",
+            "64,128", "--kernel-policy", "blocksparse", "--sparse-block",
+            "16", "--smoke", "--metrics-path", str(tmp_path / "m.jsonl")])
+    torch.cuda.synchronize()
+    report = json.loads(out.getvalue().splitlines()[-1])
+    assert rc == 0, report["failures"]
+    assert report["platform"] == "gpu"
+    assert pt_bs.launch_count.value > len(report["kernel"][
+        "numerics_max_diff"])
+    assert max(report["kernel"]["numerics_max_diff"].values()) <= 1e-3
+    assert {k.split(":")[0] for k in report["kernel"]["folds"]} \
+        == {"blocksparse"}

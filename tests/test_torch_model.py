@@ -11,6 +11,8 @@ rows, depth 2, and a mask with a padded tail.
 """
 
 import ast
+import functools
+import re
 from pathlib import Path
 
 import jax
@@ -34,6 +36,8 @@ from alphafold2_tpu_torch.model import primitives as pt_prim
 from alphafold2_tpu_torch.model import structure as pt_struct
 from alphafold2_tpu_torch.weights import load_jax_params
 from test_torch_serve import random_params
+from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
+
 
 DIM, HEADS, DIM_HEAD, N, ROWS, DEPTH, VALID = 32, 2, 16, 16, 3, 2, 12
 ATOL = 1e-4
@@ -202,8 +206,8 @@ def models():
     msa_mask = np.broadcast_to(mask[:, None], (1, ROWS, N)).copy()
     batch = dict(seq=seq, msa=msa, mask=mask, msa_mask=msa_mask)
     jm = jax_af2.Alphafold2(**MODEL_KW)
-    params = jm.init(jax.random.PRNGKey(8), seq, msa=msa, mask=mask,
-                     msa_mask=msa_mask)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(8), seq, msa=msa,
+                              mask=mask, msa_mask=msa_mask)
     params = perturb_params(params, jax.random.PRNGKey(9))
     pm = pt_af2.Alphafold2(**MODEL_KW, device="cpu")
     load_jax_params(pm, jax.tree.map(np.asarray, params))
@@ -330,7 +334,8 @@ def test_forward_matches_jax_at_dim_head_160():
     params = random_params(shapes, np.random.default_rng(16))
     pm = pt_af2.Alphafold2(**kw, device="cpu")
     load_jax_params(pm, params)
-    coords, ret = jm.apply(params, **batch, return_aux_logits=True)
+    coords, ret = jax.jit(functools.partial(
+        jm.apply, return_aux_logits=True))(params, **batch)
     with torch.inference_mode():
         pc, pret = pm(**torch_batch(batch), return_aux_logits=True)
     v = slice(0, valid)
@@ -344,14 +349,16 @@ def test_unrolled_depth1_bridge():
     seq = rng.integers(0, 21, (1, 8))
     kw = dict(MODEL_KW, depth=1)
     jm = jax_af2.Alphafold2(**kw)
-    params = perturb_params(jm.init(jax.random.PRNGKey(12), seq),
+    # the JAX side under jit: an eager init and forward of the whole
+    # model compile every primitive on its own
+    params = perturb_params(jax.jit(jm.init)(jax.random.PRNGKey(12), seq),
                             jax.random.PRNGKey(13))
     assert "layers_0" in params["params"]["net"]
     pm = pt_af2.Alphafold2(**kw, device="cpu")
     load_jax_params(pm, jax.tree.map(np.asarray, params))
     with torch.inference_mode():
         out = pm(t(seq))
-    close(jm.apply(params, seq), out, atol=COORDS_ATOL)
+    close(jax.jit(jm.apply)(params, seq), out, atol=COORDS_ATOL)
 
 
 def test_bridge_refuses_strays_and_gaps(models):
@@ -476,10 +483,73 @@ def test_port_imports_no_jax():
                     "alphafold2_tpu_torch/fleet/frontdoor.py",
                     "alphafold2_tpu_torch/fleet/scaling.py",
                     "alphafold2_tpu_torch/fleet/controlplane.py",
-                    "alphafold2_tpu_torch/fleet/procfleet.py"):
+                    "alphafold2_tpu_torch/fleet/procfleet.py",
+                    "alphafold2_tpu_torch/data/threefry.py",
+                    "alphafold2_tpu_torch/tools/obs_report.py",
+                    "alphafold2_tpu_torch/tools/obs_fleet.py",
+                    "alphafold2_tpu_torch/tools/serve_loadtest.py",
+                    "alphafold2_tpu_torch/tools/cache_warm.py",
+                    "alphafold2_tpu_torch/tools/bulk_submit.py"):
         assert covered in names, covered
     bad = [b for f in files for b in _forbidden_imports(f)]
+    # the port's tools are its own copies: nothing loads a file of the
+    # repo's tools/ by path
+    bad += [f"{f.name}: loads a file by path" for f in files
+            if "tools" in f.parts
+            and re.search(r"spec_from_file_location|exec\(|runpy",
+                          f.read_text())]
     assert not bad, bad
+
+
+def _smoke_python(text):
+    """(inline Python blocks, python command lines) of a shell script:
+    each `python - <<'TAG'` heredoc's body, and every other line that
+    runs python, with its continuation lines."""
+    blocks, commands = [], []
+    lines = text.splitlines()
+    i = 0
+    while i < len(lines):
+        line = lines[i]
+        heredoc = re.search(r"python - <<'(\w+)'", line)
+        if heredoc:
+            end = lines.index(heredoc.group(1), i + 1)
+            blocks.append("\n".join(lines[i + 1:end]))
+            i = end + 1
+            continue
+        if re.search(r"\bpython3?\b", line) and not line.lstrip(
+                ).startswith("#"):
+            command = [line]
+            while command[-1].rstrip().endswith("\\"):
+                i += 1
+                command.append(lines[i])
+            commands.append("\n".join(command))
+        i += 1
+    return blocks, commands
+
+
+def test_serve_smoke_runs_only_the_port():
+    """serve_smoke.sh's inline Python imports the port alone, and its
+    python commands run the port's tools, never JAX, flax, the JAX
+    package or a file of the repo's tools/."""
+    text = (REPO / "alphafold2_tpu_torch/tools/serve_smoke.sh").read_text()
+    blocks, commands = _smoke_python(text)
+    assert len(blocks) >= 12 and len(commands) >= 30
+    bad = []
+    for block in blocks:
+        tree = ast.parse(block)
+        bad += [f"inline: {name}" for node in ast.walk(tree)
+                for name in ([a.name for a in node.names]
+                             if isinstance(node, ast.Import) else
+                             [node.module] if isinstance(
+                                 node, ast.ImportFrom) else [])
+                if name.split(".")[0] in FORBIDDEN]
+    pattern = re.compile(r"alphafold2_tpu(?!_torch)|\bjax\b|\bflax\b|"
+                         r"(?<![\w/.])tools/")
+    bad += [f"text: {m.group(0)!r} in {src[:80]!r}"
+            for src in blocks + commands for m in pattern.finditer(src)]
+    assert not bad, bad
+    assert all("alphafold2_tpu_torch.tools." in c for c in commands
+               if re.search(r"python3? -m", c))
 
 
 def test_quaternion_and_rigid_match_jax():

@@ -19,6 +19,8 @@ import torch
 from alphafold2_tpu.ops import attention as jax_attn
 from alphafold2_tpu_torch.ops import attention as pt_attn
 from test_torch_gpu import CASES, make_case
+from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
+
 
 ATOL = 1e-5
 

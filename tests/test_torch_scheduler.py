@@ -30,6 +30,8 @@ from alphafold2_tpu_torch import serve as pt_serve
 from alphafold2_tpu_torch.model.alphafold2 import Alphafold2
 from alphafold2_tpu_torch.weights import load_jax_params
 from test_torch_serve import MODEL_KW, N, ROWS, random_params
+from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
+
 
 FOLD_ATOL = 5e-4
 SIDES = ("jax", "port")

@@ -11,6 +11,8 @@ backend against JAX's. Small size: dim 32, depth 1, n 16, 3 MSA rows; the
 JAX params are drawn with numpy onto the shapes of the JAX model's init.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +37,20 @@ from alphafold2_tpu_torch.serve.bucketing import (BucketPolicy,
 from alphafold2_tpu_torch.serve.executor import FoldExecutor
 from alphafold2_tpu_torch.serve.kernelpolicy import KernelPolicy
 from alphafold2_tpu_torch.weights import load_jax_params
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads_per_worker():
+    """Each pytest-xdist worker takes its share of the cores for torch's
+    intra-op threads: the default (every core in every worker)
+    oversubscribes the CPU, and the port's small CPU models then run an
+    order of magnitude slower (a load-test case: ~2 s alone, 17-39 s
+    beside busy workers). One process keeps the default."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    prev = torch.get_num_threads()
+    torch.set_num_threads(max(1, prev // workers))
+    yield
+    torch.set_num_threads(prev)
 
 N, ROWS, LENGTHS = 16, 3, (12, 9)
 MODEL_KW = dict(dim=32, depth=1, heads=2, dim_head=16, predict_coords=True,

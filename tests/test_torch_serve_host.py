@@ -44,6 +44,7 @@ from alphafold2_tpu_torch.serve import recycle as pt_recycle
 from alphafold2_tpu_torch.serve import request as pt_request
 from alphafold2_tpu_torch.serve import resilience as pt_res
 from test_torch_serve import MODEL_KW, N, ROWS
+from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
 
 
 def fields(cls):

@@ -37,6 +37,8 @@ from alphafold2_tpu_torch import serve as pt_serve
 from alphafold2_tpu_torch.weights import load_jax_params
 from test_torch_scheduler import executors  # noqa: F401  (module fixture)
 from test_torch_serve import N, ROWS, random_params
+from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
+
 
 FOLD_ATOL = 5e-4
 SIDES = ("jax", "port")

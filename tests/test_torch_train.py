@@ -16,6 +16,7 @@ parameters after one Adam step within 1e-5; the bf16 distogram step's
 loss within 2e-2 relative of the JAX package's bf16 loss.
 """
 
+import functools
 import json
 import threading
 import time
@@ -51,6 +52,8 @@ from alphafold2_tpu_torch.train import prefetch as pt_prefetch
 from alphafold2_tpu_torch.train import state as pt_state
 from alphafold2_tpu_torch.utils import flops as pt_flops
 from alphafold2_tpu_torch.weights import load_jax_params
+from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
+
 
 DIM, HEADS, DIM_HEAD, N, ROWS, VALID = 32, 2, 16, 16, 3, 12
 GEO_ATOL = 1e-5
@@ -502,6 +505,10 @@ class Reference:
         self.tx = jax_state.adam(LR)
         self._first = None
 
+    def _adam_step(self, grads, params):
+        updates, _ = self.tx.update(grads, self.tx.init(params), params)
+        return optax.apply_updates(params, updates)
+
     def port_model(self, dtype=torch.float32):
         pm = pt_af2.Alphafold2(**self.kw, dtype=dtype, device="cpu")
         load_jax_params(pm, jax.tree.map(np.asarray, self.params))
@@ -536,9 +543,8 @@ class Reference:
 
             grads, metrics = jax.jit(jax.grad(loss_fn, has_aux=True))(
                 self.params)
-        updates, _ = self.tx.update(grads, self.tx.init(self.params),
-                                    self.params)
-        new_params = optax.apply_updates(self.params, updates)
+        # the Adam step under jit: eager, every leaf's ops compile alone
+        new_params = jax.jit(self._adam_step)(grads, self.params)
         return (float(metrics["loss"]), self.bridged(grads),
                 self.bridged(new_params),
                 {k: float(v) for k, v in metrics.items()})
@@ -634,10 +640,11 @@ def test_recycled_train_step_matches_jax(coords_ref, monkeypatch, recycles):
     rec = None
     if recycles:
         b = coords_ref.batch
-        _, ret = coords_ref.jm.apply(
+        _, ret = jax.jit(functools.partial(
+            coords_ref.jm.apply, return_aux_logits=True,
+            return_recyclables=True))(
             coords_ref.params, b["seq"], msa=b["msa"], mask=b["mask"],
-            msa_mask=b["msa_mask"], return_aux_logits=True,
-            return_recyclables=True)
+            msa_mask=b["msa_mask"])
         rec = ret.recyclables
     ref_loss, ref_grads, ref_params, _ = coords_ref.jax_step(rec)
     port_noise(monkeypatch, coords_ref.noise)

@@ -9,14 +9,21 @@ template pair stack and its pointwise attention into the pair, the
 template angle features as extra MSA rows, the extra-MSA Evoformer
 (global-query ingoing triangle attention), the main Evoformer, the
 distogram head on the symmetrised pair and the trRosetta angle heads,
-the MLM loss, the single/pair projections, the IPA structure module and
-the lDDT confidence head. The trunk runs in `dtype` (bf16 by default in
-`ModelConfig`); the heads and the structure module are fp32.
+the MLM loss, the single/pair projections, the structure module (IPA, or
+an equivariant refiner from `model/refiners.py` for `structure_module_type`
+egnn, en or se3), the optional refinement of its coordinates
+(`structure_module_refinement_iters`: a dense EGNN over the CA trace,
+"residue", or the sparse EGNN over the 14-atom covalent graph,
+"egnn-atom", whose atom cloud comes back on `ReturnValues.atoms`) and the
+lDDT confidence head. The trunk runs in `dtype` (bf16 by default in
+`ModelConfig`), plain or reversible (`reversible=True`); the heads and
+the structure module are fp32.
 
 Every module is built whatever the inputs of a call, as the JAX
 package's init-time coverage makes one params tree serve every input
-combination; the angle heads and the structure module exist only under
-`predict_angles` / `predict_coords`, as in the JAX tree. Modules are
+combination; the angle heads, the structure module and the refiners
+exist only under `predict_angles` / `predict_coords` and their options,
+as in the JAX tree. Modules are
 registered in the order the earlier slices registered theirs, the new
 ones after them, so `init_weights` draws the earlier modules' seeded
 weights unchanged.
@@ -24,9 +31,8 @@ weights unchanged.
 `train=True` noises the MSA and turns dropout on; both draw from the
 `generator` passed to `forward` (the default generator when None), and
 `ReturnValues.msa_mlm_loss` carries the MLM loss. Options the port does
-not run yet (other structure modules, refinement, the trunk menu of
-queue 1 items 10-11) raise NotImplementedError naming their ROADMAP
-item.
+not run yet (the trunk menu of queue 1 items 10-11) raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -42,9 +48,10 @@ from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.model.evoformer import (Evoformer,
                                                   PairwiseAttentionBlock)
 from alphafold2_tpu_torch.model.mlm import MLM
+from alphafold2_tpu_torch.data.scn import scn_cloud_mask
 from alphafold2_tpu_torch.model.primitives import (Attention, Dense,
-                                                   LayerNorm, init_weights,
-                                                   not_ported)
+                                                   LayerNorm, init_weights)
+from alphafold2_tpu_torch.model.refiners import AtomEGNNRefiner, Refiner
 from alphafold2_tpu_torch.model.structure import StructureModule
 
 
@@ -66,9 +73,9 @@ class ReturnValues(NamedTuple):
     theta: Optional[torch.Tensor] = None         # (b, n, n, 25)
     phi: Optional[torch.Tensor] = None           # (b, n, n, 13)
     omega: Optional[torch.Tensor] = None         # (b, n, n, 25)
+    # the refined atom cloud, structure_module_refinement="egnn-atom" only
+    atoms: Optional[torch.Tensor] = None         # (b, n, 14, 3)
 
-
-_ITEM11 = "queue 1, item 11 (model/refiners.py)"
 
 
 class Alphafold2(nn.Module):
@@ -127,12 +134,12 @@ class Alphafold2(nn.Module):
     ):
         super().__init__()
         device = resolve_device(device)
-        if structure_module_type != "ipa":
-            not_ported("structure_module_type", structure_module_type,
-                       _ITEM11)
-        if structure_module_refinement_iters > 0:
-            not_ported("structure_module_refinement_iters",
-                       structure_module_refinement_iters, _ITEM11)
+        refine = predict_coords and structure_module_refinement_iters > 0
+        if refine and structure_module_refinement not in ("residue",
+                                                          "egnn-atom"):
+            raise ValueError(
+                "structure_module_refinement must be 'residue' or "
+                f"'egnn-atom', got {structure_module_refinement!r}")
         self.dim = dim
         self.heads = heads
         self.max_rel_dist = max_rel_dist
@@ -163,7 +170,8 @@ class Alphafold2(nn.Module):
             self.trunk_to_pairwise_repr_dim = Dense(dim, dim)
             self.structure_module = StructureModule(
                 dim, depth=structure_module_depth,
-                heads=structure_module_heads)
+                heads=structure_module_heads) \
+                if structure_module_type == "ipa" else None
             self.lddt_linear = Dense(dim, 1)
         # the last embedding row is the mask token
         self.mlm = MLM(dim, num_tokens, mask_id=num_tokens,
@@ -205,6 +213,21 @@ class Alphafold2(nn.Module):
             self.to_prob_theta = Dense(dim, constants.THETA_BUCKETS)
             self.to_prob_phi = Dense(dim, constants.PHI_BUCKETS)
             self.to_prob_omega = Dense(dim, constants.OMEGA_BUCKETS)
+        # the equivariant refiners (registered after the modules of the
+        # earlier slices): the structure module itself for egnn / en /
+        # se3, then the refinement of its coordinates
+        self.structure_module_refiner = Refiner(
+            dim, kind=structure_module_type, iters=structure_module_depth,
+            edge_dim=dim) \
+            if predict_coords and structure_module_type != "ipa" else None
+        self.refinement = structure_module_refinement if refine else None
+        if self.refinement == "residue":
+            self.coords_refiner = Refiner(
+                dim, kind="egnn", iters=structure_module_refinement_iters,
+                edge_dim=dim)
+        elif self.refinement == "egnn-atom":
+            self.atom_refiner = AtomEGNNRefiner(
+                dim, iters=structure_module_refinement_iters)
 
         init_weights(self, generator if generator is not None
                      else torch.Generator().manual_seed(0))
@@ -406,8 +429,32 @@ class Alphafold2(nn.Module):
         single_msa_repr_row = m[:, 0]
         single_repr = self.msa_to_single_repr_dim(single_msa_repr_row.float())
         pairwise_repr = self.trunk_to_pairwise_repr_dim(x_f32)
-        coords, single_out = self.structure_module(single_repr,
-                                                   pairwise_repr, mask=mask)
+        if self.structure_module is not None:
+            coords, single_out = self.structure_module(
+                single_repr, pairwise_repr, mask=mask)
+        else:
+            # the refiner as the structure module: a straight chain at
+            # 3.8 A spacing breaks the translational symmetry, then
+            # E(n)/SE(3) updates driven by the single and pair reprs
+            chain = torch.arange(n, dtype=torch.float32, device=device)
+            init_coords = (chain[:, None] * torch.tensor(
+                [3.8, 0.0, 0.0], device=device))[None].expand(b, n, 3)
+            single_out, coords = self.structure_module_refiner(
+                single_repr, init_coords, edges=pairwise_repr, mask=mask)
+        if self.refinement == "egnn-atom":
+            # the CA trace -> 14-atom scaffold -> sparse EGNN over the
+            # covalent graph; coords take the refined CA slot, except at
+            # residues without an atom cloud (unknown tokens), which keep
+            # the structure module's. As in the JAX package, `mask` does
+            # not enter `has_ca`: a masked residue of a standard type
+            # takes its zeroed refined slot
+            _, heads["atoms"] = self.atom_refiner(single_out, coords, seq,
+                                                  mask=mask)
+            has_ca = scn_cloud_mask(seq)[:, :, 1:2] > 0
+            coords = torch.where(has_ca, heads["atoms"][:, :, 1], coords)
+        elif self.refinement == "residue":
+            single_out, coords = self.coords_refiner(
+                single_out, coords, edges=pairwise_repr, mask=mask)
         confidence = self.lddt_linear(single_out)
 
         ret = ReturnValues(

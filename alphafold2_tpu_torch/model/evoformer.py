@@ -10,10 +10,11 @@ and transition; dropout draws from the `generator` the caller passes.
 `use_scan=True` (the JAX default, its `nn.scan` + `nn.remat` stack) runs
 each layer under `torch.utils.checkpoint` whenever gradients are on, so
 the backward recomputes a layer's interior instead of storing it; with
-gradients off, and with `use_scan=False`, it is the plain loop. The JAX
-package's pipeline, reversible, ring, conv and efficient-attention
-options are not ported: selecting one raises and names the ROADMAP item
-that will bring it.
+gradients off, and with `use_scan=False`, it is the plain loop.
+`reversible=True` runs the trunk as `model.reversible.ReversibleEvoformer`
+(parameters under `rev.rev_layers`). The JAX package's pipeline, ring,
+conv and efficient-attention options are not ported: selecting one
+raises and names the ROADMAP item that will bring it.
 """
 
 from __future__ import annotations
@@ -143,7 +144,6 @@ class EvoformerBlock(nn.Module):
 _NOT_PORTED = {
     "ring_attention": (False, "queue 1, item 10 (parallel/ring.py)"),
     "pipeline_stages": (1, "queue 1, item 10 (parallel/pipeline.py)"),
-    "reversible": (False, "queue 1, item 11 (model/reversible.py)"),
     "use_conv": (False, "queue 1, item 11 (attention_variants.py)"),
     "conv_seq_kernels": (((9, 1), (1, 9), (3, 3)),
                          "queue 1, item 11 (attention_variants.py)"),
@@ -196,16 +196,36 @@ def _rematerialised(layer: EvoformerBlock, x, m, mask, msa_mask,
 
 class Evoformer(nn.Module):
     """depth x EvoformerBlock; under gradients with `use_scan` each layer
-    is rematerialised (checkpointed)."""
+    is rematerialised (checkpointed). `reversible` builds the reversible
+    trunk instead."""
 
     def __init__(self, dim: int, depth: int, heads: int = 8,
                  dim_head: int = 64, attn_dropout: float = 0.0,
                  ff_dropout: float = 0.0, global_column_attn: bool = False,
                  outer_mean_reference_scale: bool = False,
-                 use_scan: bool = True, dtype=torch.float32, **options):
+                 use_scan: bool = True, reversible: bool = False,
+                 dtype=torch.float32, **options):
         super().__init__()
+        if reversible:
+            # the JAX package's refusals of the reversible trunk
+            if options.get("pipeline_stages", 1) > 1:
+                raise ValueError("pipeline_stages>1 is not supported with "
+                                 "the reversible trunk")
+            if outer_mean_reference_scale:
+                raise ValueError("reversible trunk does not support "
+                                 "outer_mean_reference_scale yet")
         check_not_ported(options)
         self.use_scan = use_scan
+        self.rev = None
+        if reversible:
+            from alphafold2_tpu_torch.model.reversible import (
+                ReversibleEvoformer)
+            self.rev = ReversibleEvoformer(
+                dim, depth, heads=heads, dim_head=dim_head,
+                global_column_attn=global_column_attn,
+                attn_dropout=attn_dropout, ff_dropout=ff_dropout,
+                dtype=dtype)
+            return
         self.layers = nn.ModuleList(
             EvoformerBlock(dim, heads, dim_head, attn_dropout=attn_dropout,
                            ff_dropout=ff_dropout,
@@ -217,6 +237,9 @@ class Evoformer(nn.Module):
 
     def forward(self, x, m, mask=None, msa_mask=None, train: bool = False,
                 generator: Optional[torch.Generator] = None):
+        if self.rev is not None:
+            return self.rev(x, m, mask=mask, msa_mask=msa_mask, train=train,
+                            generator=generator)
         remat = self.use_scan and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:

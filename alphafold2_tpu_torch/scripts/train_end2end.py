@@ -1,0 +1,119 @@
+"""End-to-end coordinate training on the card (counterpart of
+`scripts/train_end2end.py`), on synthetic batches.
+
+    python -m alphafold2_tpu_torch.scripts.train_end2end \
+        [--config cfg.json] [--steps N] \
+        [--structure-module {ipa,egnn,en,se3}] [--refinement-iters N] \
+        [--refinement {residue,egnn-atom}] [--reversible] \
+        [--log metrics.jsonl] [--device cuda|cpu]
+
+The experiment JSON is the JAX package's (`config.Experiment`); without
+one the model is dim 128, depth 2 on 64-residue crops, as in the JAX
+script. The model predicts coordinates; the flags override the config
+only when given. Batches are `data.synthetic.synthetic_batch` draws with
+a CA trace, seeded by their index; the loss is the coordinate loss
+(Kabsch RMSD and the distogram dispersion), the confidence regression
+and the MLM loss (`train.compute_loss`). The trRosetta dataset
+(`--data`) is not ported (ROADMAP.md, queue 1, item 11) and a mesh
+(`--mesh`) is not either (item 10): each raises. Runs `train.fit`,
+prints the step-time summary, saves a checkpoint when the experiment
+names a `checkpoint_dir`, and returns the logged history.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from alphafold2_tpu_torch.config import Experiment
+from alphafold2_tpu_torch.data.synthetic import synthetic_batch
+from alphafold2_tpu_torch.device import resolve_device
+from alphafold2_tpu_torch.train import CheckpointManager, TrainState, fit
+from alphafold2_tpu_torch.utils import MetricsLogger, StepTimer
+
+_ITEM = "ROADMAP.md, queue 1, item {}"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default=None)
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--data", default=None)
+    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--structure-module", default=None,
+                    choices=["ipa", "egnn", "en", "se3"])
+    ap.add_argument("--refinement-iters", type=int, default=None)
+    ap.add_argument("--refinement", default=None,
+                    choices=["residue", "egnn-atom"],
+                    help="what --refinement-iters refines: the CA trace "
+                         "(residue) or the 14-atom covalent graph "
+                         "(egnn-atom)")
+    ap.add_argument("--reversible", action="store_const", const=True,
+                    default=None)
+    ap.add_argument("--log", default=None, help="metrics JSONL path")
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card (cpu runs the plain path)")
+    args = ap.parse_args(argv)
+
+    if args.data is not None:
+        raise NotImplementedError(
+            f"--data: the trRosetta dataset is not ported to PyTorch yet "
+            f"({_ITEM.format(11)})")
+    if args.mesh is not None:
+        raise NotImplementedError(f"--mesh: a device mesh is not ported to "
+                                  f"PyTorch yet ({_ITEM.format(10)})")
+
+    if args.config:
+        with open(args.config) as f:
+            exp = Experiment.from_json(f.read())
+    else:
+        exp = Experiment()
+        exp.model.dim, exp.model.depth = 128, 2
+        exp.data.crop_len = 64
+    exp.model.predict_coords = True
+    if args.structure_module is not None:
+        exp.model.structure_module_type = args.structure_module
+    if args.refinement_iters is not None:
+        exp.model.structure_module_refinement_iters = args.refinement_iters
+    if args.refinement is not None:
+        exp.model.structure_module_refinement = args.refinement
+    if args.reversible is not None:
+        exp.model.reversible = args.reversible
+    if args.steps is not None:
+        exp.train.num_steps = args.steps
+
+    device = resolve_device(args.device)
+    model, tx, _ = exp.build(
+        device=device,
+        generator=torch.Generator().manual_seed(exp.train.seed))
+
+    def synthetic_stream():
+        i = 0
+        while True:
+            yield synthetic_batch(np.random.default_rng(i),
+                                  batch=exp.data.batch_size,
+                                  seq_len=exp.data.crop_len,
+                                  msa_depth=exp.data.msa_depth,
+                                  with_coords=True)
+            i += 1
+
+    state = TrainState.create(model, tx, seed=exp.train.seed + 2)
+    timer = StepTimer()
+    logger = MetricsLogger(args.log)
+    try:
+        state, history = fit(model, state, synthetic_stream(),
+                             exp.train.num_steps,
+                             log_every=exp.train.log_every, logger=logger,
+                             step_timer=timer)
+    finally:
+        logger.close()
+    print("step time:", timer.summary())
+    if exp.train.checkpoint_dir:
+        CheckpointManager(exp.train.checkpoint_dir).save(state)
+    return history
+
+
+if __name__ == "__main__":
+    main()

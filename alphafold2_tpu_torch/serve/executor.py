@@ -23,7 +23,7 @@ of `obs.trace.NULL_TRACE`: `compile` when a key is built, `fold`,
 recycle=)` and `mutate_result(batch, result)` hooks.
 
 Not ported yet (ROADMAP.md): multi-device slices and meshes (queue 1,
-item 10) and CUDA-graph capture per key (queue 1, item 8).
+item 10) and CUDA-graph capture per key (queue 2, item 8).
 """
 
 from __future__ import annotations

@@ -12,9 +12,13 @@ JAX. Leaf rules:
 - a scanned stack (the trunk `net/layers/block/...`, the extra-MSA
   stack `extra_msa_evoformer/layers/block/...`) carries a leading depth
   axis, unstacked into `<stack>.layers.<i>....`; an unrolled stack's
-  `<stack>/layers_<i>/...` maps to the same names;
+  `<stack>/layers_<i>/...` maps to the same names; the reversible
+  trunk's `net/rev/rev_layers/...`, stacked over depth by its own
+  initialiser, is unstacked into `net.rev.rev_layers.<i>....`;
 - flax's auto-named submodules map to the port's attribute names
-  (`_RENAMES`); IPA's `point_weights` keeps its name.
+  (`_RENAMES`); IPA's `point_weights` keeps its name; the refiners'
+  (`structure_module_refiner`, `coords_refiner`, `atom_refiner`) keep
+  their flax names.
 
 Every leaf of a JAX `Alphafold2.init` tree has a port parameter: a JAX
 leaf without one raises, and so does any port parameter left unset.
@@ -60,6 +64,9 @@ def _translate(parts: tuple, value: np.ndarray):
         if part == "layers" and parts[at + 1:at + 2] == ["block"]:
             # scanned stack: one stacked leaf per parameter
             return [(name(parts[:at] + ["layers", str(i)] + parts[at + 2:]),
+                     value[i]) for i in range(value.shape[0])]
+        if part == "rev_layers":
+            return [(name(parts[:at + 1] + [str(i)] + parts[at + 1:]),
                      value[i]) for i in range(value.shape[0])]
         if part.startswith("layers_"):
             return [(name(parts[:at] + ["layers", part[len("layers_"):]]

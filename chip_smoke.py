@@ -18,8 +18,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    N=256, bias replayed over 256), the template pointwise attention
    (B=524,288, Nq=1, Nk=4, cells with no valid template), the extra-MSA
    row attention (B=8192, N=256, bias replayed over 1024) and column
-   attention (B=2048, N=1024; its plain version over chunks of B), plus
-   a small backward against autograd; K2 at the 512 bucket's MSA row and
+   attention (B=2048, N=1024; its plain version over chunks of B), and
+   the row, column and triangle shapes of phases 13-15 (evaluate's 72
+   residues under a one-row MSA, whose column attention runs at Nq = Nk
+   = 1; end2end-egnn's 64 residues; the fp32 reversible checks' 128),
+   plus a small backward against autograd; K2 at the 512 bucket's MSA row and
    triangle shapes under the default policy's pattern and a banded
    block-128 one, plus one call at the default scale), then at the
    tensor-core tile's edge cases (ragged and odd lengths, every head
@@ -169,7 +172,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
    remat trunk under `make_recycled_train_step(max_recycles=3)`: one
    step with a finite loss and 48 + 24 r K1 launches (r its recycle
    count), then a checkpoint saved and restored on the card (bit-equal,
-   and the next step draws the same r from the restored generator).
+   and the next step draws the same r from the restored generator);
+13. end2end-egnn (BASELINE config 3): the port's
+   `scripts/train_end2end.py --structure-module egnn` in-process at the
+   default ModelConfig on 64-residue synthetic crops, 5 MSA rows: one
+   warm-up step and 3 more; each step's wall (its synchronised
+   StepTimer), peak memory, finite losses and gradients, and K1 launches
+   per step, which must equal the prediction from the code (8 per remat
+   layer: 48);
+14. end2end-se3-rev (BASELINE config 4): the same with `--structure-
+   module se3 --refinement-iters 4 --reversible` on 256-residue crops
+   (K1 12 per reversible layer: forward, inversion, re-linearisation:
+   72); then the trained trunk's reconstruction (the inverse of its
+   forward against the inputs, bf16, and an fp32 copy at 128 residues)
+   and the fp32 copy's reversible gradients against plain autograd
+   through the same layers;
+15. evaluate: the port's `scripts/evaluate.py --pdb
+   tests/data/1h22_head.pdb --recycles 3` at the default ModelConfig
+   (random weights): RMSD, TM, GDT-TS, lDDT and confidence, K1 96
+   launches, and a predicted PDB that reads back;
+16. refiners-check: one forward of each refiner kind (egnn, en, se3 and
+   the atom-level EGNN) at dim 256 and `core.nerf.sidechain_container`,
+   the card against the CPU in fp32: each one's largest difference
+   (within 1e-3) and largest value, their ratio within 1e-5.
 
 Each phase prints its seconds.
 
@@ -230,13 +255,36 @@ FULL_K1_SHAPES = ("template_triangle", "pointwise", "extra_row",
                   "extra_col")
 K1_SHAPES = ("msa_row", "msa_col", "triangle", "msa_col_512") + \
     FULL_K1_SHAPES
+# K1's shapes on the paths of phases 13-15 that no fold-path shape has,
+# as (fold-path shape, residues, real residues, MSA rows), every real
+# row and column unmasked as there: evaluate's 72 residues of
+# tests/data/1h22_head.pdb under its one-row MSA (the column attention
+# at Nq = Nk = 1), end2end-egnn's 64-residue crops, and the fp32
+# reversible checks' 128 residues with the last 16 padded
+PATH_K1_SHAPES = {
+    "evaluate_row": ("msa_row", 72, 72, 1),
+    "evaluate_col": ("msa_col", 72, 72, 1),
+    "evaluate_triangle": ("triangle", 72, 72, 1),
+    "egnn_row": ("msa_row", 64, 64, MSA_ROWS),
+    "egnn_col": ("msa_col", 64, 64, MSA_ROWS),
+    "egnn_triangle": ("triangle", 64, 64, MSA_ROWS),
+    "rev128_row": ("msa_row", 128, 112, MSA_ROWS),
+    "rev128_col": ("msa_col", 128, 112, MSA_ROWS),
+    "rev128_triangle": ("triangle", 128, 112, MSA_ROWS),
+}
 
 
 def log(*args):
     print(*args, flush=True)
 
 
+# the card's name and power limit as nvidia-smi prints them, set by
+# phase_device and printed beside the numbers of the later phases
+CARD = ""
+
+
 def phase_device():
+    global CARD
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = subprocess.run(
@@ -244,7 +292,8 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     log(f"device: {name} (count {count})")
-    log(f"nvidia-smi: {smi.stdout.strip()}")
+    CARD = smi.stdout.strip()
+    log(f"nvidia-smi: {CARD}")
     return name, count
 
 
@@ -296,12 +345,17 @@ def attention_inputs(shape, dtype, device, seed, d=64):
     512-bucket fold (its other attentions run K2); and the full-feature
     fold's four (t=4 templates, the last missing and the one before it
     partial, as `synthetic_features` makes them; e=1024 extra rows, each
-    covering a random prefix of the real residues)."""
-    heads, valid = 8, 200
+    covering a random prefix of the real residues); or one of
+    PATH_K1_SHAPES, without the fold-path shapes' masked MSA row and
+    ragged last row."""
+    heads, valid, rows, ragged = 8, 200, MSA_ROWS, True
     g = torch.Generator(device=device).manual_seed(seed)
     bucket = BUCKET
     if shape == "msa_col_512":  # the 512 bucket's column attention
         shape, bucket, valid = "msa_col", SPARSE_BUCKET, 437
+    if shape in PATH_K1_SHAPES:
+        shape, bucket, valid, rows = PATH_K1_SHAPES[shape]
+        ragged = False
     real = torch.arange(bucket, device=device) < valid
     templates = real[None].repeat(TEMPLATES, 1)
     templates[-2, (2 * valid) // 3:] = False
@@ -315,14 +369,16 @@ def attention_inputs(shape, dtype, device, seed, d=64):
 
     nq = nk = bucket
     bias_rows, bias_repeat = heads, 1
-    if shape == "msa_row":      # 5 alignment rows attend over residues
-        q_mask = real[None].repeat(MSA_ROWS, 1)
-        q_mask[3] = False                        # one fully masked row
-        k_mask, bias_repeat = q_mask, MSA_ROWS
-    elif shape == "msa_col":    # residues attend over 5 alignment rows
-        nq = nk = MSA_ROWS
-        k_mask = real[:, None].repeat(1, MSA_ROWS)
-        k_mask[:valid, -1] = False               # a ragged last row
+    if shape == "msa_row":      # the alignment rows attend over residues
+        q_mask = real[None].repeat(rows, 1)
+        if ragged:
+            q_mask[3] = False                    # one fully masked row
+        k_mask, bias_repeat = q_mask, rows
+    elif shape == "msa_col":    # residues attend over the alignment rows
+        nq = nk = rows
+        k_mask = real[:, None].repeat(1, rows)
+        if ragged:
+            k_mask[:valid, -1] = False           # a ragged last row
         q_mask, bias_rows = k_mask, 0
     elif shape == "triangle":   # triangle attention over the pair map
         q_mask = real[:, None] & real[None, :]
@@ -390,7 +446,7 @@ def phase_check():
     dev = torch.device("cuda")
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in K1_SHAPES:
+        for shape in K1_SHAPES + tuple(PATH_K1_SHAPES):
             kw = attention_inputs(shape, dtype, dev, seed=1)
             out = attn.fused_attention(**kw)
             torch.cuda.synchronize()
@@ -1418,11 +1474,13 @@ def phase_profile(run, title, unprofiled=5):
         us, calls = rows.get(label, (0.0, 0))
         rows[label] = (us + e.self_device_time_total, calls + e.count)
     busy_us = sum(us for us, _ in rows.values())
-    log(f"profile {title}: device busy {busy_us / 1e3:.1f} ms; unprofiled "
+    kernels = sum(calls for _, calls in rows.values())
+    log(f"profile {title}: {kernels} kernels, device busy "
+        f"{busy_us / 1e3:.1f} ms; unprofiled "
         f"wall {wall_us / 1e3:.1f} ms (median of {unprofiled}: "
         f"{[round(w / 1e3, 1) for w in walls]}), busy "
         f"{100 * busy_us / wall_us:.1f} %; wall under the profiler "
-        f"{traced_us / 1e3:.1f} ms")
+        f"{traced_us / 1e3:.1f} ms [{CARD}]")
     for label, (us, calls) in sorted(rows.items(), key=lambda r: -r[1][0])[:12]:
         log(f"  {us / 1e3:9.3f} ms {100 * us / max(busy_us, 1):5.1f} % "
             f"{calls:5d} x {label}")
@@ -2707,6 +2765,346 @@ def phase_train_recycled():
     return {"r": r, "k1_launches": h["k1_launches"], "loss": h["loss"]}
 
 
+# the end-to-end training phases (BASELINE configs 3 and 4 at the
+# default ModelConfig's widths): crop lengths, steps after one warm-up
+# step, and K1 launches per step predicted from the code (PERF.md
+# section 6): the remat trunk launches 4 per layer forward and 4 in each
+# layer's recompute; the reversible trunk 4 per layer forward, 4 in each
+# layer's inversion and 4 in its re-linearisation; the refiners, NeRF and
+# the losses launch none
+END2END_STEPS = 3
+END2END_EGNN_LENGTH = 64
+END2END_SE3_LENGTH = 256
+END2END_SE3_REFINEMENT = 4
+K1_PER_LAYER = {"remat": 8, "reversible": 12}
+# the reversible trunk's checks: fp32 reconstruction and gradients at
+# full width (fp32 sums in another order through six layers), and the
+# bf16 reconstruction of the trained trunk (8 bits of mantissa per
+# coupling: the JAX package measures ~1e-2 of drift per 10 layers)
+REV_CHECK_LENGTH = 128
+REV_RECON_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-1}
+REV_GRAD_TOL = 1e-3
+# card against CPU for the refiners and the NeRF build-out (fp32): the
+# largest difference, absolute and over the largest output value (the
+# noise-moved modules put out values up to ~250; fp32 sums in another
+# order read 1e-6 to 1.1e-4 absolute, 4e-9 to 5e-7 relative on an
+# NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6)
+REFINER_CHECK_LENGTH = 64
+REFINER_CHECK_TOL = 1e-3
+REFINER_CHECK_REL_TOL = 1e-5
+EVALUATE_PDB = os.path.join("tests", "data", "1h22_head.pdb")
+
+
+def end2end_config(tmp, length):
+    """The default ModelConfig (dim 256, depth 6, heads 8, dim_head 64,
+    bf16 trunk) on `length`-residue synthetic crops, 5 MSA rows, one
+    warm-up step and END2END_STEPS more, each logged."""
+    from alphafold2_tpu_torch.config import Experiment
+    exp = Experiment()
+    exp.data.crop_len = length
+    exp.data.msa_depth = MSA_ROWS
+    exp.train.num_steps = 1 + END2END_STEPS
+    exp.train.log_every = 1
+    path = os.path.join(tmp, "exp.json")
+    with open(path, "w") as f:
+        f.write(exp.to_json())
+    return path
+
+
+def run_end2end(tag, length, flags, per_layer):
+    """The port's scripts/train_end2end.py in-process on the card: step
+    walls (its StepTimer, synchronised), K1 launches per step, peak
+    memory, finite losses and gradients; then a profile of one more step
+    (where its time goes). Returns (record, model)."""
+    import tempfile
+
+    from alphafold2_tpu_torch.ops import attention as attn
+    from alphafold2_tpu_torch.scripts import train_end2end
+    from alphafold2_tpu_torch.train.state import TrainState
+    from alphafold2_tpu_torch.utils import StepTimer
+
+    launches, grads_finite, states, timers = [], [], [], []
+
+    class CountingTimer(StepTimer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            timers.append(self)
+
+        def start(self):
+            super().start()
+            self.k1_before = attn.launch_count.value
+
+        def stop(self):
+            super().stop()
+            launches.append(attn.launch_count.value - self.k1_before)
+
+    apply = TrainState.apply_gradients
+
+    def checked(self, grads):
+        norms = torch._foreach_norm([g for g in grads if g is not None])
+        grads_finite.append(torch.isfinite(torch.stack(norms)).all())
+        states[:] = [self]
+        return apply(self, grads)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = end2end_config(tmp, length)
+        train_end2end.StepTimer, TrainState.apply_gradients = \
+            CountingTimer, checked
+        try:
+            reset_peak()
+            reset_launches()
+            t0 = time.perf_counter()
+            history = train_end2end.main(["--config", cfg, *flags])
+            total = time.perf_counter() - t0
+            peak = peak_gib()
+        finally:
+            train_end2end.StepTimer, TrainState.apply_gradients = \
+                StepTimer, apply
+    (state,) = states
+    model = state.model
+    depth = len(model.net.rev.rev_layers) if model.net.rev is not None \
+        else len(model.net.layers)
+    want = per_layer * depth
+    walls = [s * 1e3 for s in timers[0].durations]
+    losses = [h["loss"] for h in history]
+    finite = bool(torch.stack(grads_finite).all())
+    log(f"{tag}: default ModelConfig (dim {model.dim}, depth {depth}, "
+        f"bf16) "
+        f"{' '.join(flags)}, {length} residues, {MSA_ROWS} MSA rows: "
+        f"losses {[round(v, 4) for v in losses]}, step walls (after the "
+        f"warm-up step) {[round(w, 2) for w in walls[1:]]} ms, warm-up "
+        f"{walls[0]:.1f} ms, peak memory {peak:.3f} GiB, K1 launches per "
+        f"step {launches} (predicted {want}), gradients finite {finite}, "
+        f"script {total:.1f} s [{CARD}]")
+    if not np.isfinite(losses).all() or not finite:
+        raise AssertionError(f"{tag}: losses {losses}, finite grads "
+                             f"{finite}")
+    if set(launches) != {want}:
+        raise AssertionError(f"{tag}: K1 launched {launches} times per "
+                             f"step, predicted {want}")
+    from alphafold2_tpu_torch.data.synthetic import synthetic_batch
+    from alphafold2_tpu_torch.train import make_train_step
+    step = make_train_step(model)
+    batch = synthetic_batch(np.random.default_rng(0), seq_len=length,
+                            msa_depth=MSA_ROWS, device=model.device)
+    busy, wall, _ = phase_profile(lambda: step(state, batch),
+                                  f"{tag} train step")
+    return {"length": length, "flags": flags, "losses": losses,
+            "step_ms": walls[1:], "warmup_ms": walls[0],
+            "median_step_ms": float(np.median(walls[1:])),
+            "peak_memory_gib": peak, "k1_launches_per_step": launches,
+            "profiled_busy_ms": busy,
+            "profiled_wall_ms": wall}, model
+
+
+def phase_end2end_egnn():
+    """BASELINE config 3's path: `train_end2end.py --structure-module
+    egnn` on 64-residue crops."""
+    record, _ = run_end2end("end2end-egnn", END2END_EGNN_LENGTH,
+                            ["--structure-module", "egnn"],
+                            K1_PER_LAYER["remat"])
+    return record
+
+
+def phase_end2end_se3_rev():
+    """BASELINE config 4's path: `--structure-module se3
+    --refinement-iters 4 --reversible` on 256-residue crops, then the
+    reversible trunk's reconstruction and gradient checks."""
+    record, model = run_end2end(
+        "end2end-se3-rev", END2END_SE3_LENGTH,
+        ["--structure-module", "se3", "--refinement-iters",
+         str(END2END_SE3_REFINEMENT), "--reversible"],
+        K1_PER_LAYER["reversible"])
+    record.update(reversible_checks(model.net.rev))
+    return record
+
+
+def reversible_checks(trained):
+    """The trained trunk (bf16) and an fp32 copy of it at full width:
+    reconstruction of the inputs by inverting the forward, and (fp32)
+    the reversible backward's gradients against plain autograd through
+    the same layers."""
+    from alphafold2_tpu_torch.config import ModelConfig
+    from alphafold2_tpu_torch.model import reversible as rev
+    cfg = ModelConfig()
+    dev = next(trained.parameters()).device
+    depth, dim = len(trained.rev_layers), cfg.dim
+    g = torch.Generator().manual_seed(SEED + 11)
+    n = REV_CHECK_LENGTH
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    x, m = draw(1, n, n, dim), draw(1, MSA_ROWS, n, dim)
+    valid = torch.arange(n, device=dev) < n - n // 8
+    pair_mask = (valid[:, None] & valid[None])[None]
+    msa_mask = valid[None, None].expand(1, MSA_ROWS, n)
+    fp32 = rev.ReversibleEvoformer(dim, depth, heads=cfg.heads,
+                                   dim_head=cfg.dim_head).to(dev)
+    fp32.load_state_dict(trained.state_dict())
+    out = {}
+    with torch.no_grad():
+        for dtype, trunk in ((torch.bfloat16, trained),
+                             (torch.float32, fp32)):
+            streams = tuple(s.to(dtype) for s in (x, x, m, m))
+            fwd = rev.run_layers(trunk.rev_layers, streams, pair_mask,
+                                 msa_mask)
+            back = rev.run_layers(trunk.rev_layers, fwd, pair_mask,
+                                  msa_mask, inverse=True)
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(back, streams)) / \
+                max(float(s.float().abs().max()) for s in streams)
+            out[f"reconstruction_err_{str(dtype)[6:]}"] = err
+            log(f"end2end-se3-rev reversible trunk ({str(dtype)[6:]}, "
+                f"depth {depth}, dim {dim}, n {n}, {MSA_ROWS} rows): "
+                f"inverse of the forward against the inputs, max error over "
+                f"the largest input {err:.3e} (tolerance "
+                f"{REV_RECON_TOL[dtype]:.0e}) [{CARD}]")
+            if not err <= REV_RECON_TOL[dtype]:
+                raise AssertionError(f"reconstruction error {err}")
+
+    params = list(fp32.parameters())
+
+    def loss_of(pair, msa):
+        return (pair.float() ** 2).mean() + (msa.float() ** 2).mean()
+
+    leaves = [x.clone().requires_grad_(), m.clone().requires_grad_()]
+    reset_launches()
+    got = torch.autograd.grad(
+        loss_of(*fp32(*leaves, pair_mask, msa_mask)), leaves + params)
+    k1_rev = read_launches()[0]
+    plain_leaves = [x.clone().requires_grad_(), m.clone().requires_grad_()]
+    s = rev.run_layers(fp32.rev_layers, (plain_leaves[0], plain_leaves[0],
+                                         plain_leaves[1], plain_leaves[1]),
+                       pair_mask, msa_mask)
+    ref = torch.autograd.grad(
+        loss_of((s[0] + s[1]) * 0.5, (s[2] + s[3]) * 0.5),
+        plain_leaves + params)
+    scale = max(float(r.abs().max()) for r in ref)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref)) / scale
+    log(f"end2end-se3-rev reversible backward (fp32, K1 {k1_rev} launches: "
+        f"{depth} x 4 forward + {depth} x 8 inversion and "
+        f"re-linearisation) against plain autograd through the same "
+        f"layers: max gradient error over the largest gradient {err:.3e} "
+        f"(tolerance {REV_GRAD_TOL:.0e}) [{CARD}]")
+    if not err <= REV_GRAD_TOL or k1_rev != 12 * depth:
+        raise AssertionError(f"reversible gradients: error {err}, K1 "
+                             f"{k1_rev}")
+    out["grad_err_fp32"] = err
+    return out
+
+
+def phase_evaluate():
+    """`scripts/evaluate.py --pdb tests/data/1h22_head.pdb --recycles 3`
+    on the card at the default ModelConfig: the metrics, K1 launches,
+    and a predicted PDB that reads back."""
+    import tempfile
+
+    from alphafold2_tpu_torch.config import Experiment
+    from alphafold2_tpu_torch.data import native
+    from alphafold2_tpu_torch.scripts import evaluate
+    pdb = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       EVALUATE_PDB)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, out = os.path.join(tmp, "exp.json"), os.path.join(tmp,
+                                                               "pred.pdb")
+        with open(cfg, "w") as f:
+            f.write(Experiment().to_json())
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            metrics = evaluate.main(["--pdb", pdb, "--config", cfg,
+                                     "--recycles", str(NUM_RECYCLES),
+                                     "--out", out])
+        wall = time.perf_counter() - t0
+        k1 = read_launches()[0]
+        with open(out) as f:
+            _, coords, atom_mask = native.parse_pdb(f.read())
+    n = metrics["n_residues"]
+    from alphafold2_tpu_torch.config import ModelConfig
+    want = 4 * ModelConfig().depth * (NUM_RECYCLES + 1)
+    log(f"evaluate: {EVALUATE_PDB} ({n} residues), default ModelConfig "
+        f"(random weights), {NUM_RECYCLES} recycles: RMSD "
+        f"{metrics['kabsch_rmsd']:.3f} A, TM {metrics['tm_score']:.4f}, "
+        f"GDT-TS {metrics['gdt_ts']:.4f}, lDDT {metrics['lddt']:.4f}, "
+        f"confidence {metrics['mean_confidence']:.4f}; K1 launches {k1} "
+        f"(predicted {want}); the PDB reads back {coords.shape[0]} CA; "
+        f"script {wall:.1f} s [{CARD}]")
+    values = [metrics[k] for k in ("kabsch_rmsd", "tm_score", "gdt_ts",
+                                   "lddt", "mean_confidence")]
+    if not np.isfinite(values).all() or k1 != want or \
+            coords.shape[0] != n or not atom_mask[:, 1].all():
+        raise AssertionError(f"evaluate: {metrics}, K1 {k1}")
+    return dict(metrics, k1_launches=k1, wall_s=wall)
+
+
+def phase_refiners_check():
+    """Each refiner kind (egnn, en, se3, the atom-level EGNN) and the
+    NeRF build-out: the card against the CPU in fp32, same weights (the
+    model's initialisation, moved by noise) and inputs; the error is the
+    largest difference over the largest output value."""
+    from alphafold2_tpu_torch.core.nerf import sidechain_container
+    from alphafold2_tpu_torch.model import refiners
+    from alphafold2_tpu_torch.model.primitives import init_weights
+    dim, n = 256, REFINER_CHECK_LENGTH
+    rng = np.random.default_rng(SEED + 12)
+
+    def arr(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape,
+                                                   dtype=np.float32) * scale)
+
+    h, x, edges = arr(1, n, dim), arr(1, n, 3, scale=5.0), arr(1, n, n, dim)
+    mask = torch.arange(n)[None] < n - 8
+    seq = torch.as_tensor(rng.integers(0, 21, (1, n)))
+    ca = torch.cumsum(arr(1, n, 3) + torch.tensor([3.8, 0.0, 0.0]), dim=1)
+    cases = {kind: (refiners.Refiner(dim, kind=kind, iters=2,
+                                     edge_dim=dim),
+                    (h, x), {"edges": edges, "mask": mask})
+             for kind in ("egnn", "en", "se3")}
+    cases["egnn-atom"] = (refiners.AtomEGNNRefiner(dim, iters=2),
+                          (h, ca, seq), {"mask": mask})
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errors = {}
+    try:
+        for kind, (module, args, kw) in cases.items():
+            init_weights(module, torch.Generator().manual_seed(SEED + 13))
+            perturb(module, SEED + 14)
+            with torch.no_grad():
+                cpu = module(*args, **kw)
+                module.to("cuda")
+                gpu = module(*(a.cuda() for a in args),
+                             **{k: v.cuda() for k, v in kw.items()})
+            errors[kind] = compare(cpu, [b.cpu() for b in gpu])
+        backbone = torch.stack([ca - torch.tensor([1.2, 0.6, 0.0]), ca,
+                                ca + torch.tensor([1.2, -0.6, 0.3])], dim=2)
+        cpu = sidechain_container(backbone, seq)
+        gpu = sidechain_container(backbone.cuda(), seq.cuda())
+        errors["sidechain_container"] = compare([cpu], [gpu.cpu()])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    log(f"refiners-check card vs cpu (fp32, dim {dim}, n {n}, 2 "
+        f"iterations; sidechain_container at {n} residues), max abs err / "
+        f"largest value = error: "
+        + ", ".join(f"{k} {e['abs_err']:.3e} / {e['max_value']:.1f} = "
+                    f"{e['err']:.3e}" for k, e in errors.items())
+        + f" (tolerance {REFINER_CHECK_TOL:.0e} absolute, "
+        f"{REFINER_CHECK_REL_TOL:.0e} relative) [{CARD}]")
+    if not (max(e["abs_err"] for e in errors.values()) <= REFINER_CHECK_TOL
+            and max(e["err"] for e in errors.values())
+            <= REFINER_CHECK_REL_TOL):
+        raise AssertionError(f"refiners differ on the card: {errors}")
+    return errors
+
+
+def compare(cpu, gpu):
+    """The largest difference over outputs, the largest CPU value and
+    their ratio."""
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(cpu, gpu))
+    top = max(float(a.abs().max()) for a in cpu)
+    return {"abs_err": abs_err, "max_value": top, "err": abs_err / top}
+
+
 def sliced_record(edges, kernel):
     """One kernel's sliced-path entries of the JSON record: its worst
     errors at D > 128 and its D = 256 times."""
@@ -2805,6 +3203,10 @@ def main(argv=None):
     grad_worst = run("train-check", phase_train_check)
     train = run("train", phase_train)
     recycled = run("train-recycled", phase_train_recycled)
+    e2e_egnn = run("end2end-egnn", phase_end2end_egnn)
+    e2e_rev = run("end2end-se3-rev", phase_end2end_se3_rev)
+    evaluated = run("evaluate", phase_evaluate)
+    refiner_errs = run("refiners-check", phase_refiners_check)
     log(f"phase seconds: {json.dumps(seconds)}")
     record = {"kernels": [{
         "name": "fused_attention",
@@ -2850,6 +3252,11 @@ def main(argv=None):
         "loadtest": loadtest,
         "loadtest_chaos": loadtest_chaos,
         "loadtest_fleet": loadtest_fleet,
+        "launches_evaluate": evaluated["k1_launches"],
+        "end2end_egnn": e2e_egnn,
+        "end2end_se3_rev": e2e_rev,
+        "evaluate": evaluated,
+        "refiners_card_vs_cpu": refiner_errs,
         **timing,
     }, {
         "name": "block_sparse_attention",

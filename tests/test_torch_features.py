@@ -19,7 +19,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from conftest import perturb_params
 
 from alphafold2_tpu import predict as jax_predict
 from alphafold2_tpu.model import alphafold2 as jax_af2
@@ -35,6 +34,7 @@ from alphafold2_tpu_torch.ops.block_sparse import KernelSpec
 from alphafold2_tpu_torch.train import loop as pt_loop
 from alphafold2_tpu_torch.weights import load_jax_params
 from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
+from test_torch_serve import perturb_numpy
 
 
 DIM, HEADS, DIM_HEAD, N, B, ROWS, T, E = 32, 2, 16, 16, 2, 3, 2, 4
@@ -193,7 +193,7 @@ def test_cross_attention_matches_jax():
     pm = pt_prim.Attention(DIM, HEADS, DIM_HEAD)
     params = jm.init(jax.random.PRNGKey(2), x, mask=mask, context=ctx,
                      context_mask=cmask)
-    params = perturb_params(params, jax.random.PRNGKey(3))
+    params = perturb_numpy(params, 3)
     load_jax_params(pm, jax.tree.map(np.asarray, params))
     for kw in (dict(mask=mask, context_mask=cmask), dict(mask=mask),
                dict(context_mask=cmask), {}):
@@ -223,7 +223,7 @@ def test_template_stack_matches_jax():
     assert pm.outer_mean is None
     params = jm.init(jax.random.PRNGKey(5), x, mask=mask)
     assert "outer_mean" not in params["params"]
-    params = perturb_params(params, jax.random.PRNGKey(6))
+    params = perturb_numpy(params, 6)
     load_jax_params(pm, jax.tree.map(np.asarray, params))
     ref, out = x, t(x)
     for _ in range(2):

@@ -20,7 +20,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from conftest import perturb_params
 
 from alphafold2_tpu import constants as jax_constants
 from alphafold2_tpu import predict as jax_predict
@@ -35,7 +34,7 @@ from alphafold2_tpu_torch.model import evoformer as pt_evo
 from alphafold2_tpu_torch.model import primitives as pt_prim
 from alphafold2_tpu_torch.model import structure as pt_struct
 from alphafold2_tpu_torch.weights import load_jax_params
-from test_torch_serve import random_params
+from test_torch_serve import perturb_numpy, random_params
 from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
 
 
@@ -60,7 +59,7 @@ def bridged(jax_module, port_module, *args, seed=0, **kwargs):
     """Init the JAX module on `args`, perturb its params, and load them
     into the port module. Returns the perturbed JAX params."""
     params = jax_module.init(jax.random.PRNGKey(seed), *args, **kwargs)
-    params = perturb_params(params, jax.random.PRNGKey(seed + 100))
+    params = perturb_numpy(params, seed + 100)
     load_jax_params(port_module, jax.tree.map(np.asarray, params))
     return params
 
@@ -208,7 +207,7 @@ def models():
     jm = jax_af2.Alphafold2(**MODEL_KW)
     params = jax.jit(jm.init)(jax.random.PRNGKey(8), seq, msa=msa,
                               mask=mask, msa_mask=msa_mask)
-    params = perturb_params(params, jax.random.PRNGKey(9))
+    params = perturb_numpy(params, 9)
     pm = pt_af2.Alphafold2(**MODEL_KW, device="cpu")
     load_jax_params(pm, jax.tree.map(np.asarray, params))
     return jm, params, pm, batch
@@ -351,8 +350,8 @@ def test_unrolled_depth1_bridge():
     jm = jax_af2.Alphafold2(**kw)
     # the JAX side under jit: an eager init and forward of the whole
     # model compile every primitive on its own
-    params = perturb_params(jax.jit(jm.init)(jax.random.PRNGKey(12), seq),
-                            jax.random.PRNGKey(13))
+    params = perturb_numpy(jax.jit(jm.init)(jax.random.PRNGKey(12), seq),
+                           13)
     assert "layers_0" in params["params"]["net"]
     pm = pt_af2.Alphafold2(**kw, device="cpu")
     load_jax_params(pm, jax.tree.map(np.asarray, params))
@@ -374,21 +373,38 @@ def test_bridge_refuses_strays_and_gaps(models):
     load_jax_params(pm, jax.tree.map(np.asarray, params))  # restore
 
 
+# options that raised until the refiners and the reversible trunk were
+# ported (tests/test_torch_refiners.py, tests/test_torch_reversible.py):
+# they build now, and the part of each that is still unported raises
+LIFTED = {"reversible": dict(reversible=True),
+          "structure_module_type": dict(structure_module_type="egnn"),
+          "structure_module_refinement_iters": dict(
+              structure_module_refinement_iters=2)}
+
+
 @pytest.mark.parametrize("case", [
     "reversible", "structure_module_type", "ring_attention", "kernel",
     "use_conv", "structure_module_refinement_iters"])
 def test_unported_options_raise(case):
+    if case in LIFTED:
+        model = pt_af2.Alphafold2(**dict(MODEL_KW, **LIFTED[case]),
+                                  device="cpu")
+        built = {"reversible": model.net.rev,
+                 "structure_module_type": model.structure_module_refiner,
+                 "structure_module_refinement_iters":
+                     getattr(model, "coords_refiner", None)}[case]
+        assert built is not None
+        # the reversible trunk's conv coupling needs attention_variants
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pt_af2.Alphafold2(**dict(MODEL_KW, **LIFTED[case],
+                                     use_conv=True), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "structure_module_type":
-            pt_af2.Alphafold2(**dict(MODEL_KW, structure_module_type="egnn"),
-                              device="cpu")
-        elif case == "kernel":
+        if case == "kernel":
             # fold(kernel=KernelSpec) is ported (tests/test_torch_serve.py);
             # the model-level block-sparse row attention is not
             pt_af2.Alphafold2(**dict(MODEL_KW, sparse_self_attn=True),
                               device="cpu")
-        elif case == "structure_module_refinement_iters":
-            pt_af2.Alphafold2(**dict(MODEL_KW, **{case: 2}), device="cpu")
         else:
             pt_af2.Alphafold2(**dict(MODEL_KW, **{case: True}),
                               device="cpu")

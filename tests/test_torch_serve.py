@@ -60,6 +60,19 @@ SPARSE = dict(window=0, num_global=0)       # diagonal only
 FOLD_ATOL = 5e-4
 
 
+def perturb_numpy(params, seed, scale=0.05):
+    """`conftest.perturb_params` with the noise drawn by numpy: every
+    leaf moves by scale * N(0, 1), without the eager JAX draw that
+    compiles once per leaf shape (seconds for a model's tree)."""
+    rng = np.random.default_rng(seed)
+
+    def move(leaf):
+        leaf = np.asarray(leaf)
+        return leaf + (scale * rng.standard_normal(leaf.shape)).astype(
+            leaf.dtype)
+    return jax.tree.map(move, params)
+
+
 def random_params(shapes, rng):
     """Parameters on the init's shapes: LayerNorm scales near 1, Dense
     kernels N(0, 1/fan_in), everything else small noise (so no output

@@ -28,7 +28,6 @@ import numpy as np
 import optax
 import pytest
 import torch
-from conftest import perturb_params
 
 from alphafold2_tpu import config as jax_config
 from alphafold2_tpu.core import geometry as jgeo
@@ -53,6 +52,7 @@ from alphafold2_tpu_torch.train import state as pt_state
 from alphafold2_tpu_torch.utils import flops as pt_flops
 from alphafold2_tpu_torch.weights import load_jax_params
 from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
+from test_torch_serve import perturb_numpy
 
 
 DIM, HEADS, DIM_HEAD, N, ROWS, VALID = 32, 2, 16, 16, 3, 12
@@ -399,8 +399,8 @@ def test_mlm_loss_head_matches_jax():
     replaced = rng.random((1, ROWS, N)) < 0.3
     jm = jax_mlm.MLM(dim=DIM, num_tokens=constants.NUM_AMINO_ACIDS,
                      mask_id=constants.NUM_AMINO_ACIDS)
-    params = perturb_params(jm.init(jax.random.PRNGKey(0), embed, seq,
-                                    replaced), jax.random.PRNGKey(1))
+    params = perturb_numpy(jm.init(jax.random.PRNGKey(0), embed, seq,
+                                   replaced), 1)
     pm = pt_mlm.MLM(DIM, constants.NUM_AMINO_ACIDS,
                     mask_id=constants.NUM_AMINO_ACIDS)
     load_jax_params(pm, jax.tree.map(np.asarray, params))
@@ -500,7 +500,7 @@ class Reference:
              "mlm": jax.random.PRNGKey(seed + 1)},
             batch["seq"], msa=batch["msa"], mask=batch["mask"],
             msa_mask=batch["msa_mask"], train=True)
-        self.params = perturb_params(params, jax.random.PRNGKey(seed + 2))
+        self.params = perturb_numpy(params, seed + 2)
         self.noise = jax_noise(batch, seed + 3)
         self.tx = jax_state.adam(LR)
         self._first = None

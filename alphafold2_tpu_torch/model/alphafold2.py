@@ -30,9 +30,11 @@ weights unchanged.
 
 `train=True` noises the MSA and turns dropout on; both draw from the
 `generator` passed to `forward` (the default generator when None), and
-`ReturnValues.msa_mlm_loss` carries the MLM loss. Options the port does
-not run yet (the trunk menu of queue 1 items 10-11) raise
-NotImplementedError naming their ROADMAP item.
+`ReturnValues.msa_mlm_loss` carries the MLM loss. The README-era menu
+(`use_conv` and its kernels, `sparse_self_attn`, `linear_attn`,
+`kron_attn`, `kv_compress_ratio` and their knobs) reaches the main trunk
+only, as in the JAX package. The trunk's ring and pipeline options (queue
+1, item 10) raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -162,7 +164,10 @@ class Alphafold2(nn.Module):
             dim, depth, heads=heads, dim_head=dim_head,
             attn_dropout=attn_dropout, ff_dropout=ff_dropout,
             outer_mean_reference_scale=outer_mean_reference_scale,
-            use_scan=use_scan, dtype=dtype, **trunk_options)
+            use_scan=use_scan, linear_attn_kind=linear_attn_kind,
+            performer_nb_features=performer_nb_features,
+            sparse_block=sparse_block, sparse_num_global=sparse_num_global,
+            sparse_window=sparse_window, dtype=dtype, **trunk_options)
         self.distogram_norm = LayerNorm(dim)
         self.to_distogram_logits = Dense(dim, constants.DISTOGRAM_BUCKETS)
         if predict_coords:

@@ -12,9 +12,14 @@ each layer under `torch.utils.checkpoint` whenever gradients are on, so
 the backward recomputes a layer's interior instead of storing it; with
 gradients off, and with `use_scan=False`, it is the plain loop.
 `reversible=True` runs the trunk as `model.reversible.ReversibleEvoformer`
-(parameters under `rev.rev_layers`). The JAX package's pipeline, ring,
-conv and efficient-attention options are not ported: selecting one
-raises and names the ROADMAP item that will bring it.
+(parameters under `rev.rev_layers`). `use_conv` adds the conv blocks of
+`model.attention_variants` to both tracks, and the efficient-attention
+menu (`sparse_self_attn`, `linear_attn`, `kron_attn`,
+`kv_compress_ratio`: a bool or int for every layer, or one entry per
+layer) swaps the MSA row attention of each layer for a variant, as the
+JAX `Evoformer._row_variants` resolves it. The JAX package's pipeline
+and ring options are not ported: selecting one raises and names the
+ROADMAP item that will bring it.
 """
 
 from __future__ import annotations
@@ -25,13 +30,27 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from alphafold2_tpu_torch.model.attention_variants import (
+    DEFAULT_CONV_MSA_KERNELS,
+    DEFAULT_CONV_SEQ_KERNELS,
+    BlockSparseAttention,
+    LinearAttention,
+    MemoryCompressedAttention,
+    MultiKernelConvBlock,
+    PerformerAttention,
+    kronecker_pool_2d,
+)
 from alphafold2_tpu_torch.model.primitives import (
+    Attention,
     AxialAttention,
     FeedForward,
+    LayerNorm,
     OuterMean,
     TriangleMultiplicativeModule,
     not_ported,
 )
+
+ROW_VARIANTS = ("full", "sparse", "linear", "compress", "kron")
 
 
 class PairwiseAttentionBlock(nn.Module):
@@ -79,19 +98,49 @@ class PairwiseAttentionBlock(nn.Module):
 
 
 class MsaAttentionBlock(nn.Module):
-    """MSA track: pair-biased row attention over residues, then column
-    attention over alignment rows. Only the "full" row variant is
-    ported."""
+    """MSA track: row attention over residues, then column attention over
+    alignment rows. `row_variant` "full" is the pair-biased axial row
+    attention; the others fold the alignment rows into the batch behind a
+    pre-LayerNorm `row_norm`, take no pair bias, and run
+    `attention_variants`' "sparse" (`BlockSparseAttention`), "linear"
+    (`PerformerAttention` for `linear_attn_kind` "favor", else
+    `LinearAttention`), "compress" (`MemoryCompressedAttention`) or
+    "kron" (cross-attention onto the pooled pair map, repeated over the
+    rows). `seed` seeds the Performer's inference projection."""
 
     def __init__(self, dim: int, heads: int, dim_head: int = 64,
                  dropout: float = 0.0, row_variant: str = "full",
+                 sparse_block: int = 32, sparse_num_global: int = 1,
+                 sparse_window: int = 1, kv_compress_ratio: int = 2,
+                 linear_attn_kind: str = "favor",
+                 performer_nb_features: int = 256, seed: int = 0,
                  dtype=torch.float32):
         super().__init__()
-        if row_variant != "full":
-            not_ported("row_variant", row_variant, "queue 1, item 11")
-        self.row_attn = AxialAttention(
-            dim, heads, dim_head, row_attn=True, col_attn=False,
-            accept_edges=True, dropout=dropout, dtype=dtype)
+        if row_variant not in ROW_VARIANTS:
+            raise ValueError(f"unknown row_variant {row_variant!r}")
+        self.row_variant = row_variant
+        kw = dict(heads=heads, dim_head=dim_head, dtype=dtype)
+        if row_variant == "full":
+            self.row_attn = AxialAttention(
+                dim, heads, dim_head, row_attn=True, col_attn=False,
+                accept_edges=True, dropout=dropout, dtype=dtype)
+        else:
+            self.row_norm = LayerNorm(dim, dtype)
+            if row_variant == "sparse":
+                self.row_attn = BlockSparseAttention(
+                    dim, block=sparse_block, num_global=sparse_num_global,
+                    window=sparse_window, dropout=dropout, **kw)
+            elif row_variant == "linear" and linear_attn_kind == "favor":
+                self.row_attn = PerformerAttention(
+                    dim, nb_features=performer_nb_features, seed=seed, **kw)
+            elif row_variant == "linear":
+                self.row_attn = LinearAttention(dim, **kw)
+            elif row_variant == "compress":
+                self.row_attn = MemoryCompressedAttention(
+                    dim, compress_ratio=kv_compress_ratio, dropout=dropout,
+                    **kw)
+            else:
+                self.row_attn = Attention(dim, dropout=dropout, **kw)
         # the column track attends alignment rows: a serving spec's
         # residue-axis pattern never applies here, even when the MSA depth
         # equals the bucket length
@@ -99,27 +148,69 @@ class MsaAttentionBlock(nn.Module):
             dim, heads, dim_head, row_attn=False, col_attn=True,
             dropout=dropout, sparse_kernel_ok=False, dtype=dtype)
 
-    def forward(self, x, mask=None, pairwise_repr=None, train: bool = False,
+    def forward(self, x, mask=None, pairwise_repr=None, pair_mask=None,
+                train: bool = False,
                 generator: Optional[torch.Generator] = None):
-        x = self.row_attn(x, mask=mask, edges=pairwise_repr, train=train,
-                          generator=generator) + x
+        if self.row_variant == "full":
+            x = self.row_attn(x, mask=mask, edges=pairwise_repr,
+                              train=train, generator=generator) + x
+        else:
+            x = self._row_variant_attn(x, mask, pairwise_repr, pair_mask,
+                                       train, generator) + x
         x = self.col_attn(x, mask=mask, train=train,
                           generator=generator) + x
         return x
 
+    def _row_variant_attn(self, x, mask, pairwise_repr, pair_mask, train,
+                          generator):
+        b, rows, n, d = x.shape
+        hf = self.row_norm(x).reshape(b * rows, n, d)
+        mf = None if mask is None else mask.reshape(b * rows, n)
+        if isinstance(self.row_attn, LinearAttention):
+            out = self.row_attn(hf, mask=mf)
+        elif self.row_variant != "kron":
+            out = self.row_attn(hf, mask=mf, train=train,
+                                generator=generator)
+        else:
+            if pairwise_repr is None:
+                raise ValueError("row_variant='kron' needs the pair "
+                                 "representation")
+            pooled, tmask = kronecker_pool_2d(pairwise_repr, pair_mask)
+            # one pooled context per batch item, shared by its rows
+            pooled = pooled.repeat_interleave(rows, dim=0)
+            tmask = tmask.repeat_interleave(rows, dim=0)
+            if mf is None:
+                # the key mask exists only beside a query mask: all ones,
+                # so padded pooled tokens stay masked
+                mf = torch.ones(b * rows, n, dtype=torch.bool,
+                                device=x.device)
+            out = self.row_attn(hf, mask=mf, context=pooled,
+                                context_mask=tmask, train=train,
+                                generator=generator)
+        return out.reshape(b, rows, n, d)
+
 
 class EvoformerBlock(nn.Module):
-    """msa attention -> msa transition -> pair block -> pair transition,
-    all residual."""
+    """msa attention -> msa transition (-> msa conv) -> pair block -> pair
+    transition (-> pair conv), all residual. `use_conv` adds
+    `MultiKernelConvBlock`s, `conv_msa_kernels` over the (rows, n) MSA
+    and `conv_seq_kernels` over the (n, n) pair, each at every one of
+    `conv_dilations`."""
 
     def __init__(self, dim: int, heads: int, dim_head: int = 64,
                  attn_dropout: float = 0.0, ff_dropout: float = 0.0,
                  global_column_attn: bool = False,
                  outer_mean_reference_scale: bool = False,
-                 dtype=torch.float32):
+                 use_conv: bool = False,
+                 conv_seq_kernels=DEFAULT_CONV_SEQ_KERNELS,
+                 conv_msa_kernels=DEFAULT_CONV_MSA_KERNELS,
+                 conv_dilations=(1,), msa_row_variant: str = "full",
+                 dtype=torch.float32, **row_options):
         super().__init__()
         self.msa_attn = MsaAttentionBlock(dim, heads, dim_head,
-                                          dropout=attn_dropout, dtype=dtype)
+                                          dropout=attn_dropout,
+                                          row_variant=msa_row_variant,
+                                          dtype=dtype, **row_options)
         self.msa_ff = FeedForward(dim, dropout=ff_dropout, dtype=dtype)
         self.attn = PairwiseAttentionBlock(
             dim, heads, dim_head, dropout=attn_dropout,
@@ -127,15 +218,25 @@ class EvoformerBlock(nn.Module):
             outer_mean_reference_scale=outer_mean_reference_scale,
             dtype=dtype)
         self.ff = FeedForward(dim, dropout=ff_dropout, dtype=dtype)
+        self.msa_conv = self.pair_conv = None
+        if use_conv:
+            self.msa_conv = MultiKernelConvBlock(
+                dim, conv_msa_kernels, conv_dilations, dtype=dtype)
+            self.pair_conv = MultiKernelConvBlock(
+                dim, conv_seq_kernels, conv_dilations, dtype=dtype)
 
     def forward(self, x, m, mask=None, msa_mask=None, train: bool = False,
                 generator: Optional[torch.Generator] = None):
-        m = self.msa_attn(m, mask=msa_mask, pairwise_repr=x, train=train,
-                          generator=generator)
+        m = self.msa_attn(m, mask=msa_mask, pairwise_repr=x, pair_mask=mask,
+                          train=train, generator=generator)
         m = self.msa_ff(m, train=train, generator=generator) + m
+        if self.msa_conv is not None:
+            m = self.msa_conv(m, mask=msa_mask) + m
         x = self.attn(x, mask=mask, msa_repr=m, msa_mask=msa_mask,
                       train=train, generator=generator)
         x = self.ff(x, train=train, generator=generator) + x
+        if self.pair_conv is not None:
+            x = self.pair_conv(x, mask=mask) + x
         return x, m
 
 
@@ -144,18 +245,46 @@ class EvoformerBlock(nn.Module):
 _NOT_PORTED = {
     "ring_attention": (False, "queue 1, item 10 (parallel/ring.py)"),
     "pipeline_stages": (1, "queue 1, item 10 (parallel/pipeline.py)"),
-    "use_conv": (False, "queue 1, item 11 (attention_variants.py)"),
-    "conv_seq_kernels": (((9, 1), (1, 9), (3, 3)),
-                         "queue 1, item 11 (attention_variants.py)"),
-    "conv_msa_kernels": (((1, 9), (3, 3)),
-                         "queue 1, item 11 (attention_variants.py)"),
-    "conv_dilations": ((1,), "queue 1, item 11 (attention_variants.py)"),
-    "sparse_self_attn": (False, "queue 1, item 11 "
-                         "(attention_variants.BlockSparseAttention)"),
-    "linear_attn": (False, "queue 1, item 11 (attention_variants.py)"),
-    "kron_attn": (False, "queue 1, item 11 (attention_variants.py)"),
-    "kv_compress_ratio": (0, "queue 1, item 11 (attention_variants.py)"),
 }
+
+
+def row_variants(depth: int, sparse_self_attn=False, linear_attn=False,
+                 kron_attn=False, kv_compress_ratio=0):
+    """Per-layer MSA row variants and kv-pool ratios, as the JAX
+    `Evoformer._row_variants` resolves the menu: each flag is one value
+    for every layer or a tuple / list with one per layer; at most one
+    variant per layer."""
+    def flags(v, label):
+        if isinstance(v, (tuple, list)):
+            if len(v) != depth:
+                raise ValueError(f"{label} tuple has {len(v)} entries for "
+                                 f"depth {depth}")
+            return tuple(bool(b) for b in v)
+        return (bool(v),) * depth
+
+    sp = flags(sparse_self_attn, "sparse_self_attn")
+    li = flags(linear_attn, "linear_attn")
+    kr = flags(kron_attn, "kron_attn")
+    cr = kv_compress_ratio
+    if isinstance(cr, (tuple, list)):
+        if len(cr) != depth:
+            raise ValueError(f"kv_compress_ratio tuple has {len(cr)} "
+                             f"entries for depth {depth}")
+        cr = tuple(int(c) for c in cr)
+    else:
+        cr = (int(cr),) * depth
+    variants = []
+    for i in range(depth):
+        picks = [name for name, on in (
+            ("sparse", sp[i]), ("linear", li[i]), ("kron", kr[i]),
+            ("compress", cr[i] > 0)) if on]
+        if len(picks) > 1:
+            raise ValueError(
+                f"layer {i}: conflicting attention variants {picks} — at "
+                f"most one of sparse_self_attn/linear_attn/kron_attn/"
+                f"kv_compress_ratio per layer")
+        variants.append(picks[0] if picks else "full")
+    return tuple(variants), cr
 
 
 def check_not_ported(options: dict):
@@ -197,15 +326,37 @@ def _rematerialised(layer: EvoformerBlock, x, m, mask, msa_mask,
 class Evoformer(nn.Module):
     """depth x EvoformerBlock; under gradients with `use_scan` each layer
     is rematerialised (checkpointed). `reversible` builds the reversible
-    trunk instead."""
+    trunk instead. The menu (module doc) is refused beside `reversible`,
+    `pipeline_stages > 1` or `ring_attention`, with the JAX messages."""
 
     def __init__(self, dim: int, depth: int, heads: int = 8,
                  dim_head: int = 64, attn_dropout: float = 0.0,
                  ff_dropout: float = 0.0, global_column_attn: bool = False,
                  outer_mean_reference_scale: bool = False,
                  use_scan: bool = True, reversible: bool = False,
+                 use_conv: bool = False,
+                 conv_seq_kernels=DEFAULT_CONV_SEQ_KERNELS,
+                 conv_msa_kernels=DEFAULT_CONV_MSA_KERNELS,
+                 conv_dilations=(1,), sparse_self_attn=False,
+                 linear_attn=False, kron_attn=False, kv_compress_ratio=0,
+                 sparse_block: int = 32, sparse_num_global: int = 1,
+                 sparse_window: int = 1, linear_attn_kind: str = "favor",
+                 performer_nb_features: int = 256,
                  dtype=torch.float32, **options):
         super().__init__()
+        variants, ratios = row_variants(depth, sparse_self_attn,
+                                        linear_attn, kron_attn,
+                                        kv_compress_ratio)
+        if any(v != "full" for v in variants):
+            if options.get("pipeline_stages", 1) > 1 or reversible:
+                raise ValueError(
+                    "the efficient-attention menu is not supported with "
+                    "pipeline_stages>1 or reversible=True")
+            if options.get("ring_attention", False):
+                raise ValueError(
+                    "the efficient-attention menu is not supported with "
+                    "ring_attention=True (the variant row track is not "
+                    "ring-parallel)")
         if reversible:
             # the JAX package's refusals of the reversible trunk
             if options.get("pipeline_stages", 1) > 1:
@@ -217,6 +368,9 @@ class Evoformer(nn.Module):
         check_not_ported(options)
         self.use_scan = use_scan
         self.rev = None
+        conv = dict(use_conv=use_conv, conv_seq_kernels=conv_seq_kernels,
+                    conv_msa_kernels=conv_msa_kernels,
+                    conv_dilations=conv_dilations)
         if reversible:
             from alphafold2_tpu_torch.model.reversible import (
                 ReversibleEvoformer)
@@ -224,7 +378,7 @@ class Evoformer(nn.Module):
                 dim, depth, heads=heads, dim_head=dim_head,
                 global_column_attn=global_column_attn,
                 attn_dropout=attn_dropout, ff_dropout=ff_dropout,
-                dtype=dtype)
+                dtype=dtype, **conv)
             return
         self.layers = nn.ModuleList(
             EvoformerBlock(dim, heads, dim_head, attn_dropout=attn_dropout,
@@ -232,8 +386,17 @@ class Evoformer(nn.Module):
                            global_column_attn=global_column_attn,
                            outer_mean_reference_scale=(
                                outer_mean_reference_scale),
-                           dtype=dtype)
-            for _ in range(depth))
+                           msa_row_variant=variants[i],
+                           sparse_block=sparse_block,
+                           sparse_num_global=sparse_num_global,
+                           sparse_window=sparse_window,
+                           # a layer without compression keeps the JAX
+                           # block's default ratio
+                           kv_compress_ratio=ratios[i] or 2,
+                           linear_attn_kind=linear_attn_kind,
+                           performer_nb_features=performer_nb_features,
+                           seed=i, dtype=dtype, **conv)
+            for i in range(depth))
 
     def forward(self, x, m, mask=None, msa_mask=None, train: bool = False,
                 generator: Optional[torch.Generator] = None):

@@ -112,8 +112,9 @@ class LayerNorm(nn.LayerNorm):
 def init_weights(module: nn.Module, generator: torch.Generator):
     """Draw every parameter of `module` from `generator` the way the flax
     initialisers lay them out: normal(0, 1/sqrt(fan_in)) weights and zero
-    biases for Dense, zero or gate layers where flax zero-initialises,
-    ones/zeros for LayerNorm, normal embedding tables."""
+    biases for Dense and Conv2d, zero or gate layers where flax
+    zero-initialises, ones/zeros for LayerNorm, normal embedding
+    tables."""
 
     def draw(p, std):
         with torch.no_grad():
@@ -130,6 +131,9 @@ def init_weights(module: nn.Module, generator: torch.Generator):
                     mod.bias.fill_(1.0 if mod.init_kind == "gate" else 0.0)
             elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.Conv2d):
+                draw(mod.weight, mod.weight[0].numel() ** -0.5)
                 mod.bias.zero_()
             elif isinstance(mod, nn.Embedding):
                 draw(mod.weight, mod.num_embeddings ** -0.5)
@@ -182,10 +186,15 @@ class Attention(nn.Module):
         self.to_out = Dense(inner, dim, dtype=dtype, init="zeros")
 
     def project_qkv(self, x, kv_input=None):
-        """x: (..., n, d) -> q, k, v (b, h, ..., n, dh), q pre-scaled;
-        k and v come from `kv_input` (x when None). k is the first half
-        of to_kv's output, v the second; the inner axis splits
-        head-major."""
+        """x: (..., n, d) -> q, k, v (b, h, ..., n, dh), q pre-scaled
+        (`split_qkv` scaled by dim_head^-1/2)."""
+        q, k, v = self.split_qkv(x, kv_input)
+        return q * (self.dim_head ** -0.5), k, v
+
+    def split_qkv(self, x, kv_input=None):
+        """x: (..., n, d) -> q, k, v (b, h, ..., n, dh), unscaled; k and
+        v come from `kv_input` (x when None). k is the first half of
+        to_kv's output, v the second; the inner axis splits head-major."""
         h, dh = self.heads, self.dim_head
         q = self.to_q(x)
         k, v = self.to_kv(x if kv_input is None else kv_input).chunk(
@@ -194,8 +203,7 @@ class Attention(nn.Module):
         def split_heads(t):
             return t.reshape(*t.shape[:-1], h, dh).movedim(-2, 1)
 
-        q, k, v = map(split_heads, (q, k, v))
-        return q * (dh ** -0.5), k, v
+        return tuple(map(split_heads, (q, k, v)))
 
     def finish(self, out, x):
         """Merge heads (at axis 1), gate from the input, project."""
@@ -247,9 +255,7 @@ class Attention(nn.Module):
                 # dropout): the pattern as a -1e9 additive bias on the
                 # edge bias; the attention then replaces masked logits,
                 # as the JAX package's masked backend does
-                fill = torch.where(
-                    torch.as_tensor(spec.token_mask(), device=q.device),
-                    0.0, MASK_VALUE)[None, None]
+                fill = spec.additive_bias(q.device)
                 attn_bias = fill if attn_bias is None else \
                     attn_bias + fill.to(attn_bias.dtype)
             if drop:

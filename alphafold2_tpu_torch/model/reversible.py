@@ -27,10 +27,12 @@ fresh generator seeded from (base, 4 i + j), on the caller's
 generator's device, in the forward, the inversion and the
 re-linearisation alike.
 
+`use_conv` adds the conv blocks of `model.attention_variants` to the two
+FF couplings (m2' = m2 + FF(m1') + conv(m1'), and likewise for x2'), as
+the JAX layer does: x2' = x2 + f(x1') inverts whatever f holds.
+
 The inversion is exact algebra but not exact arithmetic: run the trunk
 in fp32 where the reconstruction matters (bf16 streams drift by ~1e-2).
-The conv coupling (`use_conv`) needs `attention_variants`, which is not
-ported: it raises.
 """
 
 from __future__ import annotations
@@ -40,9 +42,11 @@ from typing import List, Optional, Sequence
 import torch
 from torch import nn
 
+from alphafold2_tpu_torch.model.attention_variants import (
+    DEFAULT_CONV_MSA_KERNELS, DEFAULT_CONV_SEQ_KERNELS, MultiKernelConvBlock)
 from alphafold2_tpu_torch.model.evoformer import (MsaAttentionBlock,
                                                   PairwiseAttentionBlock)
-from alphafold2_tpu_torch.model.primitives import FeedForward, not_ported
+from alphafold2_tpu_torch.model.primitives import FeedForward
 
 _SEED_MIX = 0x9E3779B97F4A7C15
 _SEED_RANGE = 2 ** 62
@@ -54,7 +58,10 @@ class RevEvoLayer(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int = 64,
                  global_column_attn: bool = False, attn_dropout: float = 0.0,
-                 ff_dropout: float = 0.0, dtype=torch.float32):
+                 ff_dropout: float = 0.0, use_conv: bool = False,
+                 conv_seq_kernels=DEFAULT_CONV_SEQ_KERNELS,
+                 conv_msa_kernels=DEFAULT_CONV_MSA_KERNELS,
+                 conv_dilations=(1,), dtype=torch.float32):
         super().__init__()
         self.msa_attn = MsaAttentionBlock(dim, heads, dim_head,
                                           dropout=attn_dropout, dtype=dtype)
@@ -63,21 +70,33 @@ class RevEvoLayer(nn.Module):
             dim, heads, dim_head, dropout=attn_dropout,
             global_column_attn=global_column_attn, dtype=dtype)
         self.pair_ff = FeedForward(dim, dropout=ff_dropout, dtype=dtype)
+        self.msa_conv = self.pair_conv = None
+        if use_conv:
+            self.msa_conv = MultiKernelConvBlock(
+                dim, conv_msa_kernels, conv_dilations, dtype=dtype)
+            self.pair_conv = MultiKernelConvBlock(
+                dim, conv_seq_kernels, conv_dilations, dtype=dtype)
 
     def delta_msa(self, m2, x_ctx, msa_mask, train, generator):
         return self.msa_attn(m2, mask=msa_mask, pairwise_repr=x_ctx,
                              train=train, generator=generator) - m2
 
-    def delta_msa_ff(self, m1, train, generator):
-        return self.msa_ff(m1, train=train, generator=generator)
+    def delta_msa_ff(self, m1, msa_mask, train, generator):
+        out = self.msa_ff(m1, train=train, generator=generator)
+        if self.msa_conv is not None:
+            out = out + self.msa_conv(m1, mask=msa_mask)
+        return out
 
     def delta_pair(self, x2, m_ctx, mask, msa_mask, train, generator):
         return self.pair_attn(x2, mask=mask, msa_repr=m_ctx,
                               msa_mask=msa_mask, train=train,
                               generator=generator) - x2
 
-    def delta_pair_ff(self, x1, train, generator):
-        return self.pair_ff(x1, train=train, generator=generator)
+    def delta_pair_ff(self, x1, mask, train, generator):
+        out = self.pair_ff(x1, train=train, generator=generator)
+        if self.pair_conv is not None:
+            out = out + self.pair_conv(x1, mask=mask)
+        return out
 
 
 def coupling_generators(seed: Optional[int], layer: int, device
@@ -98,10 +117,10 @@ def layer_forward(layer: RevEvoLayer, streams, mask, msa_mask,
     x1, x2, m1, m2 = streams
     x_in = (x1 + x2) * 0.5
     m1 = m1 + layer.delta_msa(m2, x_in, msa_mask, train, gens[0])
-    m2 = m2 + layer.delta_msa_ff(m1, train, gens[1])
+    m2 = m2 + layer.delta_msa_ff(m1, msa_mask, train, gens[1])
     m_out = (m1 + m2) * 0.5
     x1 = x1 + layer.delta_pair(x2, m_out, mask, msa_mask, train, gens[2])
-    x2 = x2 + layer.delta_pair_ff(x1, train, gens[3])
+    x2 = x2 + layer.delta_pair_ff(x1, mask, train, gens[3])
     return x1, x2, m1, m2
 
 
@@ -110,10 +129,10 @@ def layer_inverse(layer: RevEvoLayer, streams, mask, msa_mask,
     """The algebraic inverse of `layer_forward` (fresh generators of the
     same seeds subtract the same dropout-realised deltas)."""
     x1, x2, m1, m2 = streams
-    x2 = x2 - layer.delta_pair_ff(x1, train, gens[3])
+    x2 = x2 - layer.delta_pair_ff(x1, mask, train, gens[3])
     m_out = (m1 + m2) * 0.5
     x1 = x1 - layer.delta_pair(x2, m_out, mask, msa_mask, train, gens[2])
-    m2 = m2 - layer.delta_msa_ff(m1, train, gens[1])
+    m2 = m2 - layer.delta_msa_ff(m1, msa_mask, train, gens[1])
     x_in = (x1 + x2) * 0.5
     m1 = m1 - layer.delta_msa(m2, x_in, msa_mask, train, gens[0])
     return x1, x2, m1, m2
@@ -187,18 +206,20 @@ class ReversibleEvoformer(nn.Module):
 
     def __init__(self, dim: int, depth: int, heads: int = 8,
                  dim_head: int = 64, global_column_attn: bool = False,
-                 use_conv: bool = False, attn_dropout: float = 0.0,
+                 use_conv: bool = False,
+                 conv_seq_kernels=DEFAULT_CONV_SEQ_KERNELS,
+                 conv_msa_kernels=DEFAULT_CONV_MSA_KERNELS,
+                 conv_dilations=(1,), attn_dropout: float = 0.0,
                  ff_dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
-        if use_conv:
-            not_ported("use_conv", use_conv,
-                       "queue 1, item 11 (attention_variants.py)")
         self.has_dropout = attn_dropout > 0.0 or ff_dropout > 0.0
         self.rev_layers = nn.ModuleList(
             RevEvoLayer(dim, heads, dim_head,
                         global_column_attn=global_column_attn,
                         attn_dropout=attn_dropout, ff_dropout=ff_dropout,
-                        dtype=dtype)
+                        use_conv=use_conv, conv_seq_kernels=conv_seq_kernels,
+                        conv_msa_kernels=conv_msa_kernels,
+                        conv_dilations=conv_dilations, dtype=dtype)
             for _ in range(depth))
 
     def dropout_seed(self, train: bool,

@@ -258,6 +258,16 @@ class KernelSpec:
     def covers(self, n: int) -> bool:
         return int(n) == self.n
 
+    def additive_bias(self, device, n: Optional[int] = None
+                      ) -> torch.Tensor:
+        """(1, 1, n, n) fp32: 0 on the pattern, -1e9 off it (the masked
+        backend's fill). `n` below `self.n` crops the pattern to a
+        trailing partial block."""
+        n = self.n if n is None else int(n)
+        return torch.as_tensor(
+            np.where(self.token_mask()[:n, :n], np.float32(0.0),
+                     np.float32(MASK_VALUE)), device=device)[None, None]
+
     def device_plan(self, device) -> BlockPlan:
         return BlockPlan.build(self.pattern_array(), self.block, device)
 

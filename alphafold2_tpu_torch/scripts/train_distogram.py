@@ -1,18 +1,22 @@
 """Distogram pretraining on the card (counterpart of
-`scripts/train_distogram.py`), on synthetic batches.
+`scripts/train_distogram.py`).
 
     python -m alphafold2_tpu_torch.scripts.train_distogram \
-        [--config cfg.json] [--steps N] [--log metrics.jsonl] \
-        [--device cuda|cpu]
+        [--config cfg.json] [--steps N] \
+        [--data DIR | --scn FILE.pkl | --pdb FILE...] \
+        [--log metrics.jsonl] [--device cuda|cpu]
 
 The experiment JSON is the JAX package's (`config.Experiment`); without
-one the model is dim 128, depth 2, as in the JAX script. Batches are
-`data.synthetic.synthetic_batch` draws seeded by their index; the on-disk
-datasets (`--data`, `--scn`, `--pdb`) are not ported (ROADMAP.md, queue
-1, item 11) and a mesh (`--mesh`) is not either (item 10): each raises.
-The run trains with `train.fit` (prefetch on, step timer synchronised),
-prints the step-time summary, and saves a checkpoint when the experiment
-names a `checkpoint_dir`. Returns the logged history.
+one the model is dim 128, depth 2, as in the JAX script. Batches come
+from a local sidechainnet pickle (`--scn`), from PDB files as a
+sidechainnet-format corpus (`--pdb`), from a trRosetta-style directory
+of `.a3m` + `.pdb`/`.npz` files (`--data`, or the experiment's
+`data.root`), or else from `data.synthetic.synthetic_batch` draws seeded
+by their index. A mesh (`--mesh`) is not ported (ROADMAP.md, queue 1,
+item 10) and raises. The run trains with `train.fit` (prefetch on, step
+timer synchronised), prints the step-time summary, and saves a
+checkpoint when the experiment names a `checkpoint_dir`. Returns the
+logged history.
 """
 
 from __future__ import annotations
@@ -36,19 +40,16 @@ def main(argv=None):
     ap.add_argument("--config", default=None)
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--data", default=None)
-    ap.add_argument("--scn", default=None)
-    ap.add_argument("--pdb", nargs="+", default=None)
+    ap.add_argument("--scn", default=None,
+                    help="local sidechainnet pickle")
+    ap.add_argument("--pdb", nargs="+", default=None,
+                    help="PDB file(s) as a real-structure corpus")
     ap.add_argument("--mesh", default=None, help="data,i,j or pipe,data,i,j")
     ap.add_argument("--log", default=None, help="metrics JSONL path")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (cpu runs the plain path)")
     args = ap.parse_args(argv)
 
-    for flag in ("data", "scn", "pdb"):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag}: the on-disk datasets are not ported to PyTorch "
-                f"yet ({_ITEM.format(11)})")
     if args.mesh is not None:
         raise NotImplementedError(f"--mesh: a device mesh is not ported to "
                                   f"PyTorch yet ({_ITEM.format(10)})")
@@ -61,26 +62,44 @@ def main(argv=None):
         exp.model.dim, exp.model.depth = 128, 2
     if args.steps is not None:
         exp.train.num_steps = args.steps
+    if args.data is not None:
+        exp.data.root = args.data
 
     device = resolve_device(args.device)
     model, tx, _ = exp.build(
         device=device,
         generator=torch.Generator().manual_seed(exp.train.seed))
 
-    def synthetic_stream():
-        i = 0
-        while True:
-            yield synthetic_batch(np.random.default_rng(i),
-                                  batch=exp.data.batch_size,
-                                  seq_len=exp.data.crop_len,
-                                  msa_depth=exp.data.msa_depth)
-            i += 1
+    if args.scn or args.pdb:
+        from alphafold2_tpu_torch.data.sidechainnet import (
+            SidechainnetDataModule, corpus_from_pdb)
+        source = args.scn if args.scn else corpus_from_pdb(args.pdb)
+        batches = SidechainnetDataModule(
+            source, crop_len=exp.data.crop_len,
+            batch_size=exp.data.batch_size,
+            max_msa_rows=exp.data.msa_depth).train_batches()
+    elif exp.data.root:
+        from alphafold2_tpu_torch.data.trrosetta import TrRosettaDataModule
+        batches = TrRosettaDataModule(
+            exp.data.root, crop_len=exp.data.crop_len,
+            batch_size=exp.data.batch_size,
+            max_msa_rows=exp.data.msa_depth).train_batches()
+    else:
+        def synthetic_stream():
+            i = 0
+            while True:
+                yield synthetic_batch(np.random.default_rng(i),
+                                      batch=exp.data.batch_size,
+                                      seq_len=exp.data.crop_len,
+                                      msa_depth=exp.data.msa_depth)
+                i += 1
+        batches = synthetic_stream()
 
     state = TrainState.create(model, tx, seed=exp.train.seed + 2)
     timer = StepTimer()
     logger = MetricsLogger(args.log)
     try:
-        state, history = fit(model, state, synthetic_stream(),
+        state, history = fit(model, state, batches,
                              exp.train.num_steps,
                              log_every=exp.train.log_every, logger=logger,
                              step_timer=timer)

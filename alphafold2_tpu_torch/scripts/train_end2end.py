@@ -1,8 +1,8 @@
 """End-to-end coordinate training on the card (counterpart of
-`scripts/train_end2end.py`), on synthetic batches.
+`scripts/train_end2end.py`).
 
     python -m alphafold2_tpu_torch.scripts.train_end2end \
-        [--config cfg.json] [--steps N] \
+        [--config cfg.json] [--steps N] [--data DIR] \
         [--structure-module {ipa,egnn,en,se3}] [--refinement-iters N] \
         [--refinement {residue,egnn-atom}] [--reversible] \
         [--log metrics.jsonl] [--device cuda|cpu]
@@ -10,12 +10,14 @@
 The experiment JSON is the JAX package's (`config.Experiment`); without
 one the model is dim 128, depth 2 on 64-residue crops, as in the JAX
 script. The model predicts coordinates; the flags override the config
-only when given. Batches are `data.synthetic.synthetic_batch` draws with
-a CA trace, seeded by their index; the loss is the coordinate loss
-(Kabsch RMSD and the distogram dispersion), the confidence regression
-and the MLM loss (`train.compute_loss`). The trRosetta dataset
-(`--data`) is not ported (ROADMAP.md, queue 1, item 11) and a mesh
-(`--mesh`) is not either (item 10): each raises. Runs `train.fit`,
+only when given. Batches come from a trRosetta-style directory of
+`.a3m` + `.pdb`/`.npz` files (`--data`, or the experiment's
+`data.root`; the CA trace of the 14-slot coordinates is the target), or
+else from `data.synthetic.synthetic_batch` draws with a CA trace, seeded
+by their index; the loss is the coordinate loss (Kabsch RMSD and the
+distogram dispersion), the confidence regression and the MLM loss
+(`train.compute_loss`). A mesh (`--mesh`) is not ported (ROADMAP.md,
+queue 1, item 10) and raises. Runs `train.fit`,
 prints the step-time summary, saves a checkpoint when the experiment
 names a `checkpoint_dir`, and returns the logged history.
 """
@@ -57,10 +59,6 @@ def main(argv=None):
                     help="default: the CUDA card (cpu runs the plain path)")
     args = ap.parse_args(argv)
 
-    if args.data is not None:
-        raise NotImplementedError(
-            f"--data: the trRosetta dataset is not ported to PyTorch yet "
-            f"({_ITEM.format(11)})")
     if args.mesh is not None:
         raise NotImplementedError(f"--mesh: a device mesh is not ported to "
                                   f"PyTorch yet ({_ITEM.format(10)})")
@@ -83,27 +81,37 @@ def main(argv=None):
         exp.model.reversible = args.reversible
     if args.steps is not None:
         exp.train.num_steps = args.steps
+    if args.data is not None:
+        exp.data.root = args.data
 
     device = resolve_device(args.device)
     model, tx, _ = exp.build(
         device=device,
         generator=torch.Generator().manual_seed(exp.train.seed))
 
-    def synthetic_stream():
-        i = 0
-        while True:
-            yield synthetic_batch(np.random.default_rng(i),
-                                  batch=exp.data.batch_size,
-                                  seq_len=exp.data.crop_len,
-                                  msa_depth=exp.data.msa_depth,
-                                  with_coords=True)
-            i += 1
+    if exp.data.root:
+        from alphafold2_tpu_torch.data.trrosetta import TrRosettaDataModule
+        batches = TrRosettaDataModule(
+            exp.data.root, crop_len=exp.data.crop_len,
+            batch_size=exp.data.batch_size,
+            max_msa_rows=exp.data.msa_depth).train_batches()
+    else:
+        def synthetic_stream():
+            i = 0
+            while True:
+                yield synthetic_batch(np.random.default_rng(i),
+                                      batch=exp.data.batch_size,
+                                      seq_len=exp.data.crop_len,
+                                      msa_depth=exp.data.msa_depth,
+                                      with_coords=True)
+                i += 1
+        batches = synthetic_stream()
 
     state = TrainState.create(model, tx, seed=exp.train.seed + 2)
     timer = StepTimer()
     logger = MetricsLogger(args.log)
     try:
-        state, history = fit(model, state, synthetic_stream(),
+        state, history = fit(model, state, batches,
                              exp.train.num_steps,
                              log_every=exp.train.log_every, logger=logger,
                              step_timer=timer)

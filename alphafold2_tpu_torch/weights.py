@@ -6,6 +6,8 @@ arrays (`jax.tree.map(np.asarray, params)`); this module never sees
 JAX. Leaf rules:
 
 - Dense `kernel (in, out)` -> Linear `weight (out, in)`; `bias` as is;
+- Conv `kernel (kh, kw, in, out)` (a `conv_<kh>x<kw>_d<d>` branch of
+  the conv blocks) -> Conv2d `weight (out, in, kh, kw)`;
 - `Embed.embedding` -> Embedding `weight`;
 - the LayerNorm wrapper nests a flax LayerNorm: `<name>/LayerNorm_0/
   {scale, bias}` -> `<name>.{weight, bias}`;
@@ -54,7 +56,9 @@ def _translate(parts: tuple, value: np.ndarray):
         return []
     if leaf in ("scale", "bias") and parts and parts[-1] == "LayerNorm_0":
         parts.pop()   # the wrapper's inner flax LayerNorm
-    if leaf == "kernel":
+    if leaf == "kernel" and parts and parts[-1].startswith("conv_"):
+        value = np.moveaxis(value, (-4, -3, -2, -1), (-2, -1, -3, -4))
+    elif leaf == "kernel":
         value = np.swapaxes(value, -1, -2)
 
     def name(ps):

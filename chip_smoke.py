@@ -194,7 +194,35 @@ Phases, each of which fails the run (nonzero exit, no result line):
 16. refiners-check: one forward of each refiner kind (egnn, en, se3 and
    the atom-level EGNN) at dim 256 and `core.nerf.sidechain_container`,
    the card against the CPU in fp32: each one's largest difference
-   (within 1e-3) and largest value, their ratio within 1e-5.
+   (within 1e-3) and largest value, their ratio within 1e-5;
+17. menu-check: this slice's new kernel shapes against their plain
+   versions in fp32 and bf16 at valid query rows, under the gates of
+   phase 3: K2 at the model-level sparse row of the 512 bucket (B = 40,
+   N = 512, block 32, window 1, one global block, no bias, the padded
+   tail in the key mask), K1 at the Kronecker row (B = 40, Nq = 256,
+   Nk = 512 pooled tokens) and K1 at the unpadded 300-residue sparse row
+   (the pattern as a -1e9 bias); each timed (events, profiler device
+   time) beside its plain version, SDPA and its bound;
+18. menu-parity: each menu model (interleaved sparse, kron, FAVOR+,
+   elu linear, compress, conv, reversible conv) at dim 64, depth 4, fp32,
+   folded on the card and on the CPU from the same weights: coordinates
+   within 1e-3 at real residues; the sparse menu launches K2;
+19. menu-fold: `ModelConfig(predict_coords=True, depth=12,
+   sparse_self_attn=[True, False] * 6)` (the documented README menu)
+   through `predict.fold`: 512 and 437 residues in the 512 bucket (K1
+   168 and K2 24 a fold) and 300 unpadded (K1 192, K2 0); wall, peak
+   memory, launches; a profile of one 512 fold (K2's share);
+20. menu-variants: one 256-bucket fold of 200 residues at depth 6 for
+   `kron_attn` (K1 96), FAVOR+ `linear_attn` (72), `kv_compress_ratio=2`
+   (72) and `use_conv` (96); then one train step of the reversible trunk
+   with `use_conv` at 256 residues (K1 72): wall, peak memory;
+21. menu-train: `scripts/train_distogram.py --config <menu JSON> --data
+   <dir>` (the interleaved menu at depth 6; the phase writes the
+   directory: an .a3m and `tests/data/1h22_head.pdb`), the same with
+   `--scn` on a pickle `corpus_from_pdb` writes, and
+   `scripts/train_end2end.py --data <dir>`: 3 steps each on 64-residue
+   crops, K1 48 a step (the sparse rows under gradients take K1 with
+   the pattern bias), K2 0, finite losses, walls and peak memory.
 
 Each phase prints its seconds.
 
@@ -272,6 +300,17 @@ PATH_K1_SHAPES = {
     "rev128_col": ("msa_col", 128, 112, MSA_ROWS),
     "rev128_triangle": ("triangle", 128, 112, MSA_ROWS),
 }
+# K1's shapes on the menu fold's dense attentions that no earlier shape
+# has, in the same form: the 512 bucket's MSA row and triangle attention
+# at 437 real residues (the triangle is 96 of the fold's 168 launches),
+# and the unpadded 300-residue fold's row, column and triangle attention
+MENU_K1_SHAPES = {
+    "menu_k1_row_512": ("msa_row", SPARSE_BUCKET, 437, MSA_ROWS),
+    "menu_k1_triangle_512": ("triangle", SPARSE_BUCKET, 437, MSA_ROWS),
+    "menu_k1_row_300": ("msa_row", 300, 300, MSA_ROWS),
+    "menu_k1_col_300": ("msa_col", 300, 300, MSA_ROWS),
+    "menu_k1_triangle_300": ("triangle", 300, 300, MSA_ROWS),
+}
 
 
 def log(*args):
@@ -346,15 +385,16 @@ def attention_inputs(shape, dtype, device, seed, d=64):
     fold's four (t=4 templates, the last missing and the one before it
     partial, as `synthetic_features` makes them; e=1024 extra rows, each
     covering a random prefix of the real residues); or one of
-    PATH_K1_SHAPES, without the fold-path shapes' masked MSA row and
-    ragged last row."""
+    PATH_K1_SHAPES or MENU_K1_SHAPES, without the fold-path shapes'
+    masked MSA row and ragged last row."""
     heads, valid, rows, ragged = 8, 200, MSA_ROWS, True
     g = torch.Generator(device=device).manual_seed(seed)
     bucket = BUCKET
     if shape == "msa_col_512":  # the 512 bucket's column attention
         shape, bucket, valid = "msa_col", SPARSE_BUCKET, 437
-    if shape in PATH_K1_SHAPES:
-        shape, bucket, valid, rows = PATH_K1_SHAPES[shape]
+    if shape in PATH_K1_SHAPES or shape in MENU_K1_SHAPES:
+        shape, bucket, valid, rows = {**PATH_K1_SHAPES,
+                                      **MENU_K1_SHAPES}[shape]
         ragged = False
     real = torch.arange(bucket, device=device) < valid
     templates = real[None].repeat(TEMPLATES, 1)
@@ -1043,11 +1083,11 @@ def block_sparse_bound(kw, spec):
     """(bound ms, 'bytes' | 'operations', bytes, flops) of one K2 call:
     q, k, v read and out written once, the live bias tiles, the key mask
     and the plan read once; the live blocks' two products."""
-    q, bias = kw["q"], kw["bias"]
+    q, bias = kw["q"], kw.get("bias")
     b, n, d = q.shape
     live, blk = int(spec.pattern_array().sum()), spec.block
     nbytes = (4 * b * n * d * q.element_size()
-              + bias.shape[0] * live * blk * blk * 4
+              + (0 if bias is None else bias.shape[0] * live * blk * blk * 4)
               + kw["k_mask"].numel()
               + kw["plan"].cols.numel() * 4 + kw["plan"].counts.numel() * 4)
     flops = 4 * b * live * blk * blk * d
@@ -1062,11 +1102,12 @@ def sparse_sdpa_mask(kw, spec, dtype):
     compute what one K2 launch does: the bias replayed over the fold,
     -1e9 at masked keys, -inf in dead blocks."""
     from alphafold2_tpu_torch.ops import attention as attn
-    q, bias, heads = kw["q"], kw["bias"], kw["heads"]
+    q, bias, heads = kw["q"], kw.get("bias"), kw["heads"]
     b, n = q.shape[:2]
     live = torch.as_tensor(spec.token_mask(), device=q.device)
-    add_mask = bias.reshape(-1, heads, n, n).repeat_interleave(
-        kw["bias_repeat"], dim=0).reshape(b, n, n)
+    add_mask = torch.zeros(b, n, n, device=q.device) if bias is None else \
+        bias.reshape(-1, heads, n, n).repeat_interleave(
+            kw["bias_repeat"], dim=0).reshape(b, n, n)
     keep = kw["k_mask"].repeat_interleave(heads, dim=0)[:, None, :]
     add_mask = add_mask.masked_fill(~keep, attn.MASK_VALUE)
     return add_mask.masked_fill(~live, float("-inf")).to(dtype)
@@ -3097,6 +3138,452 @@ def phase_refiners_check():
     return errors
 
 
+# the README-era menu's phases: the documented interleaved
+# block-sparse menu at full width, depth 12, through `predict.fold` in the
+# 512 bucket (512 and 437 residues, the padded tail in K2's key mask) and
+# unpadded at 300 residues (300 % 32 != 0: the sparse rows take K1 with
+# the pattern as a -1e9 bias); K1 and K2 launches a fold counted from the
+# code: the full layers launch 4 K1 a pass, the sparse layers 3 K1 (the
+# column and the two triangle attentions) and 1 K2 or, at 300, 4 K1
+MENU_DEPTH = 12
+MENU_SPARSE = [True, False] * 6
+MENU_FOLD_LENGTHS = (512, 437)
+MENU_UNPADDED_LENGTH = 300
+MENU_FOLD_LAUNCHES = {512: (4 * 6 + 3 * 6, 6), 300: (4 * 12, 0)}
+# the other menus, one 256-bucket fold each at the default depth 6: K1 a
+# pass (kron: its row is K1 at Nq = 256, Nk = 512; linear and compress
+# rows are plain PyTorch; conv adds none); the reversible conv trunk's
+# train step launches 12 per layer (forward, inversion,
+# re-linearisation)
+MENU_VARIANTS = {
+    "kron": (dict(kron_attn=True), 4 * 6),
+    "linear_favor": (dict(linear_attn=True), 3 * 6),
+    "compress2": (dict(kv_compress_ratio=2), 3 * 6),
+    "conv": (dict(use_conv=True), 4 * 6),
+}
+MENU_REV_CONV_LAUNCHES = 12 * 6
+MENU_VARIANT_LENGTH = 200
+# the menu's training path: train_distogram.py --data on the 72 residues
+# of tests/data/1h22_head.pdb (64-residue crops) with the interleaved
+# menu at depth 6, dropout 0; under gradients each layer launches 4 K1
+# forward and 4 in its recompute (the sparse rows take the pattern bias)
+MENU_TRAIN_STEPS = 3
+MENU_TRAIN_CROP = 64
+MENU_TRAIN_LAUNCHES = 8 * 6
+# menu-parity: each menu model small (dim 64, depth 4, heads 4, dim_head
+# 16), fp32, the card against the CPU at 64 residues (48 real), blocks
+# of 32 so the sparse rows run K2 on the card
+MENU_PARITY = {
+    "sparse_interleaved": dict(sparse_self_attn=[True, False] * 2),
+    "kron": dict(kron_attn=True),
+    "linear_favor": dict(linear_attn=True, performer_nb_features=32),
+    "linear_elu": dict(linear_attn=True, linear_attn_kind="elu"),
+    "compress": dict(kv_compress_ratio=[2, 0, 3, 0]),
+    "conv": dict(use_conv=True),
+    "reversible_conv": dict(reversible=True, use_conv=True),
+}
+
+
+def menu_model(depth=6, **menu):
+    """The default ModelConfig with coordinates (dim 256, heads 8,
+    dim_head 64, bf16 trunk) and `menu`, seeded random weights moved by
+    noise, on the card."""
+    from alphafold2_tpu_torch import ModelConfig
+    cfg = ModelConfig(predict_coords=True, depth=depth, **menu)
+    model = cfg.build(device="cuda",
+                      generator=torch.Generator().manual_seed(SEED))
+    perturb(model, SEED + 1)
+    return cfg, model
+
+
+def menu_request(rng, length, bucket):
+    from alphafold2_tpu_torch.data.synthetic import pad_to, synthetic_batch
+    req = synthetic_batch(rng, seq_len=length, msa_depth=MSA_ROWS,
+                          with_coords=False)
+    return {key: pad_to(val, bucket, axis=val.dim() - 1)
+            for key, val in req.items()}
+
+
+def menu_kernel_inputs(shape, dtype, seed):
+    """One launch of this slice's new shapes (heads 8, D 64, 5 MSA rows
+    folded into B = 40): K2 at the 512 bucket's model-level sparse row
+    (no bias, the padded tail in the key mask), K1 at the Kronecker row
+    (Nq = 256 residues over Nk = 512 pooled tokens, the pooled padding
+    masked), and K1 at the unpadded 300-residue sparse row (the pattern
+    as a -1e9 bias of one head group replayed over the 5 rows), the
+    pattern and bias as the model's `banded_route` makes them; or K1 at
+    one of MENU_K1_SHAPES. Returns (kernel inputs, valid query rows)."""
+    from alphafold2_tpu_torch.model.attention_variants import banded_route
+    dev = torch.device("cuda")
+    if shape in MENU_K1_SHAPES:
+        return (attention_inputs(shape, dtype, dev, seed),
+                MENU_K1_SHAPES[shape][2])
+    g = torch.Generator(device=dev).manual_seed(seed)
+    heads, rows = 8, MSA_ROWS
+
+    def randn(*s, scale=1.0):
+        return torch.randn(*s, generator=g, device=dev) * scale
+
+    if shape == "menu_k2_row_512":
+        n, valid = SPARSE_BUCKET, 437
+        kw = dict(plan=banded_route(n, 32, 1, 1, dev)[1], heads=heads,
+                  scale=1.0,
+                  k_mask=(torch.arange(n, device=dev) < valid)[None]
+                  .repeat(rows, 1))
+        nq = nk = n
+    elif shape == "menu_k1_kron":
+        nq, valid = BUCKET, 200
+        nk = 2 * BUCKET
+        real = torch.arange(BUCKET, device=dev) < valid
+        q_mask = real[None].repeat(rows, 1)
+        k_mask = torch.cat([real, real])[None].repeat(rows, 1)
+        kw = dict(bias=None, q_mask=q_mask, k_mask=k_mask, heads=heads,
+                  bias_repeat=1)
+    elif shape == "menu_k1_pattern_300":
+        nq = nk = valid = MENU_UNPADDED_LENGTH
+        full = torch.ones(rows, nq, dtype=torch.bool, device=dev)
+        bias = banded_route(nq, 32, 1, 1, dev)[2].expand(
+            1, heads, nq, nq).reshape(-1, nq, nq)
+        kw = dict(bias=bias.contiguous(), q_mask=full, k_mask=full,
+                  heads=heads, bias_repeat=rows)
+    else:
+        raise ValueError(f"unknown menu shape {shape!r}")
+    b = rows * heads
+    kw.update(q=randn(b, nq, 64, scale=0.5).to(dtype),
+              k=randn(b, nk, 64, scale=0.5).to(dtype),
+              v=randn(b, nk, 64).to(dtype))
+    return kw, valid
+
+
+MENU_SHAPES = ("menu_k2_row_512", "menu_k1_kron",
+               "menu_k1_pattern_300") + tuple(MENU_K1_SHAPES)
+
+
+def phase_menu_check():
+    """This slice's new kernel shapes against the plain versions (in fp32
+    on the same values), fp32 and bf16, at valid query rows, under the
+    check phases' gates; then each timed in bf16 (events and profiler
+    device time), beside its plain version, one SDPA call computing the
+    same function and the bound. Returns (worst errors by kernel and
+    dtype, {shape: times})."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    from alphafold2_tpu_torch.model.attention_variants import banded_route
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    worst, times = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in MENU_SHAPES:
+            kw, valid = menu_kernel_inputs(shape, dtype, seed=6)
+            sparse = shape.startswith("menu_k2")
+            fn = bs.block_sparse_attention if sparse else \
+                attn.fused_attention
+            # K1's plain version over chunks of B where its fp32 logits
+            # pass 2 GiB (the 512 triangle's are 4 GiB)
+            plain = bs.block_sparse_reference if sparse else \
+                lambda **kw: plain_attention(kw)
+            out = fn(**kw)
+            torch.cuda.synchronize()
+            ref = plain(**dict(kw, **{key: kw[key].float()
+                                      for key in ("q", "k", "v")}))
+            err = float((out.float() - ref)[:, :valid].abs().max())
+            tol = TOLERANCE[dtype]
+            kernel = "block_sparse_attention" if sparse else \
+                "fused_attention"
+            log(f"menu-check {kernel} {shape} {str(dtype)[6:]} "
+                f"B={kw['q'].shape[0]} Nq={kw['q'].shape[1]} "
+                f"Nk={kw['k'].shape[1]}: max abs err {err:.3e} at "
+                f"{valid} valid query rows (tolerance {tol:.0e})")
+            if not err <= tol or not torch.isfinite(out[:, :valid]).all():
+                raise AssertionError(f"menu-check {shape} {dtype}: max abs "
+                                     f"err {err} > {tol}")
+            del out, ref
+            key = (kernel, dtype)
+            worst[key] = max(worst.get(key, 0.0), err)
+            if dtype != torch.bfloat16:
+                continue
+            run = lambda: fn(**kw)
+            ms = cuda_ms(run, iters=30)
+            # a launch this short can leave the profiler's buffer empty:
+            # once more over more launches, else not measured (None) and
+            # the bound share read against the events time
+            dev_ms = device_ms(run, iters=30) or device_ms(run, iters=200) \
+                or None
+            plain_ms = cuda_ms(lambda: plain(**kw), iters=5)
+            q, k, v = kw["q"], kw["k"], kw["v"]
+            if sparse:
+                # the model's row pattern is this serving spec
+                spec = banded_route(SPARSE_BUCKET, 32, 1, 1, q.device)[0]
+                add_mask = sparse_sdpa_mask(kw, spec, dtype)
+                bound_ms, bound_by, _, _ = block_sparse_bound(kw, spec)
+            else:
+                add_mask = sdpa_mask(kw, dtype)
+                bound_ms, bound_by, _, _ = attention_bound(kw)
+            library_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=add_mask,
+                                              scale=1.0), iters=5)
+            del add_mask
+            times[shape] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                library_ms=library_ms, bound_ms=bound_ms,
+                                bound_by=bound_by)
+            dev_text = "not measured" if dev_ms is None else \
+                f"{dev_ms:.4f} ms"
+            log(f"menu-time {kernel} {shape} bf16: kernel {ms:.4f} ms "
+                f"(events), {dev_text} (profiler device time), plain "
+                f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}), "
+                f"{100 * bound_ms / (dev_ms or ms):.1f} % of bound "
+                f"[{CARD}]")
+    return worst, times
+
+
+def phase_menu_parity():
+    """Each menu model small and in fp32: the card (K1, K2) against the
+    CPU (their plain versions), same weights and inputs, folded with 2
+    recycles at 64 residues (48 real), coordinates at real residues
+    within 1e-3; the sparse menu must launch K2 on the card."""
+    from alphafold2_tpu_torch import ModelConfig, fold
+    from alphafold2_tpu_torch.data.synthetic import synthetic_batch
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    for name, menu in MENU_PARITY.items():
+        cfg = ModelConfig(dim=64, depth=4, heads=4, dim_head=16,
+                          predict_coords=True, bfloat16=False, **menu)
+        cpu_model = cfg.build(device="cpu",
+                              generator=torch.Generator().manual_seed(SEED))
+        perturb(cpu_model, SEED + 1)
+        gpu_model = cfg.build(device="cuda")
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        batch = synthetic_batch(np.random.default_rng(SEED), seq_len=64,
+                                msa_depth=3, with_coords=False,
+                                pad_fraction=0.25)
+        ref = fold(cpu_model, **batch, num_recycles=2, device="cpu")
+        reset_launches()
+        out = fold(gpu_model, **batch, num_recycles=2, device="cuda")
+        k1, k2 = read_launches()
+        err = float((out.coords.cpu() - ref.coords)[:, :48].abs().max())
+        top = float(ref.coords[:, :48].abs().max())
+        errs[name] = err
+        log(f"menu-parity {name} (dim 64, depth 4, n 64, 2 recycles) card "
+            f"vs cpu: coords max abs err {err:.3e} of {top:.1f} (tolerance "
+            f"1e-3), K1 {k1}, K2 {k2} launches")
+        if not err <= 1e-3 or not torch.isfinite(out.coords).all():
+            raise AssertionError(f"menu-parity {name}: {err}")
+        if name == "sparse_interleaved" and k2 != 2 * 3:
+            raise AssertionError(f"menu-parity {name}: K2 launched {k2} "
+                                 f"times, expected 6")
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = prev
+    return errs
+
+
+def phase_menu_fold():
+    """The documented menu, `sparse_self_attn=[True, False] * 6` at depth
+    12 (MIGRATING.md), full width, through `predict.fold`: 512 and 437
+    residues in the 512 bucket, then 300 unpadded. Each fold's wall, peak
+    memory and K1/K2 launches against the counts from the code; then a
+    profile of one 512 fold (K2's share of device time)."""
+    from alphafold2_tpu_torch import fold
+    cfg, model = menu_model(MENU_DEPTH, sparse_self_attn=MENU_SPARSE)
+    rng = np.random.default_rng(SEED + 12)
+    folds = []
+    for length, bucket in [(n, SPARSE_BUCKET) for n in MENU_FOLD_LENGTHS] \
+            + [(MENU_UNPADDED_LENGTH, MENU_UNPADDED_LENGTH)]:
+        req = menu_request(rng, length, bucket)
+        result, k2, k1, seconds, peak = count_fold(
+            lambda: fold(model, **req, num_recycles=NUM_RECYCLES))
+        check_result(result, bucket)
+        per_pass = MENU_FOLD_LAUNCHES[512 if bucket == SPARSE_BUCKET
+                                      else 300]
+        want = tuple(c * (NUM_RECYCLES + 1) for c in per_pass)
+        log(f"menu-fold {length} residues (bucket {bucket}), depth "
+            f"{MENU_DEPTH}, sparse_self_attn [True, False] x 6: "
+            f"{seconds * 1e3:.1f} ms wall, peak memory "
+            f"{peak / 2**30:.3f} GiB, K1 {k1} and K2 {k2} launches "
+            f"(predicted {want[0]} and {want[1]}) [{CARD}]")
+        if (k1, k2) != want:
+            raise AssertionError(f"menu-fold {length}: K1 {k1}, K2 {k2}, "
+                                 f"predicted {want}")
+        folds.append({"length": length, "bucket": bucket,
+                      "wall_ms": seconds * 1e3,
+                      "peak_gib": peak / 2**30, "k1": k1, "k2": k2})
+        if length == MENU_FOLD_LENGTHS[0]:
+            req512 = req
+    busy, wall, table = phase_profile(
+        lambda: fold(model, **req512, num_recycles=NUM_RECYCLES),
+        f"menu fold {MENU_FOLD_LENGTHS[0]} residues, depth {MENU_DEPTH}, "
+        f"interleaved sparse", unprofiled=3)
+    k2_ms = table.get("block_sparse_attention (K2)", (0.0, 0))[0]
+    k1_ms = table.get("fused_attention (K1)", (0.0, 0))[0]
+    if busy > 0:
+        log(f"menu-fold profile: K2 {k2_ms:.3f} ms "
+            f"({100 * k2_ms / busy:.3f} %), K1 {k1_ms:.2f} ms "
+            f"({100 * k1_ms / busy:.1f} %) of {busy:.1f} ms device time, "
+            f"{100 * busy / wall:.1f} % busy")
+    else:
+        log("menu-fold profile: the profiler saw no device time; K2's "
+            "share not measured")
+    return {"folds": folds, "profile_busy_ms": busy,
+            "profile_wall_ms": wall, "k2_device_ms": k2_ms,
+            "k1_device_ms": k1_ms,
+            "k2_share": k2_ms / busy if busy > 0 else None}
+
+
+def phase_menu_variants():
+    """The other menus at full width, depth 6: one 256-bucket fold each
+    (wall, peak, K1 launches against the count from the code), then one
+    train step of the reversible trunk with conv couplings."""
+    from alphafold2_tpu_torch import fold
+    from alphafold2_tpu_torch.data.synthetic import synthetic_batch
+    from alphafold2_tpu_torch.train import (TrainState, adam,
+                                            make_train_step)
+    rng = np.random.default_rng(SEED + 13)
+    out = {}
+    for name, (menu, per_pass) in MENU_VARIANTS.items():
+        _, model = menu_model(**menu)
+        req = menu_request(rng, MENU_VARIANT_LENGTH, BUCKET)
+        fold(model, **req, num_recycles=0)          # warm-up pass
+        result, k2, k1, seconds, peak = count_fold(
+            lambda: fold(model, **req, num_recycles=NUM_RECYCLES))
+        check_result(result, BUCKET)
+        want = per_pass * (NUM_RECYCLES + 1)
+        log(f"menu-variants {name}: fold {MENU_VARIANT_LENGTH} residues "
+            f"(bucket {BUCKET}), depth 6, {seconds * 1e3:.1f} ms wall, peak "
+            f"memory {peak / 2**30:.3f} GiB, K1 {k1} (predicted {want}), "
+            f"K2 {k2} [{CARD}]")
+        if (k1, k2) != (want, 0):
+            raise AssertionError(f"menu-variants {name}: K1 {k1}, K2 {k2}")
+        out[name] = {"wall_ms": seconds * 1e3, "peak_gib": peak / 2**30,
+                     "k1": k1}
+        del model
+    _, model = menu_model(reversible=True, use_conv=True)
+    state = TrainState.create(model, adam(3e-4, 1), seed=SEED)
+    step = make_train_step(model)
+    batch = synthetic_batch(np.random.default_rng(SEED), seq_len=BUCKET,
+                            msa_depth=MSA_ROWS, device=model.device)
+    state, _ = step(state, batch)                   # warm-up step
+    reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    k1, k2 = read_launches()
+    seconds = time.perf_counter() - t0
+    loss = float(metrics["loss"])
+    log(f"menu-variants reversible_conv: train step at {BUCKET} residues, "
+        f"depth 6, {seconds * 1e3:.1f} ms wall, peak memory "
+        f"{peak_gib():.3f} GiB, loss {loss:.4f}, K1 {k1} (predicted "
+        f"{MENU_REV_CONV_LAUNCHES}), K2 {k2} [{CARD}]")
+    if (k1, k2) != (MENU_REV_CONV_LAUNCHES, 0) or not np.isfinite(loss):
+        raise AssertionError(f"menu-variants reversible_conv: K1 {k1}, "
+                             f"K2 {k2}, loss {loss}")
+    out["reversible_conv_train_step"] = {"wall_ms": seconds * 1e3,
+                                         "peak_gib": peak_gib(), "k1": k1,
+                                         "loss": loss}
+    return out
+
+
+def run_script(tag, main_fn, module, argv):
+    """One of the port's training scripts in-process on the card, its
+    StepTimer counting K1 and K2 launches per step. Returns (history,
+    K1 per step, K2 per step, step walls in ms, peak GiB)."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    from alphafold2_tpu_torch.utils import StepTimer
+    k1s, k2s, timers = [], [], []
+
+    class CountingTimer(StepTimer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            timers.append(self)
+
+        def start(self):
+            super().start()
+            self.before = (attn.launch_count.value, bs.launch_count.value)
+
+        def stop(self):
+            super().stop()
+            k1s.append(attn.launch_count.value - self.before[0])
+            k2s.append(bs.launch_count.value - self.before[1])
+
+    module.StepTimer = CountingTimer
+    try:
+        reset_peak()
+        history = main_fn(argv)
+        peak = peak_gib()
+    finally:
+        module.StepTimer = StepTimer
+    walls = [s * 1e3 for s in timers[0].durations]
+    losses = [h["loss"] for h in history]
+    log(f"menu-train {tag}: losses {[round(v, 4) for v in losses]}, step "
+        f"walls {[round(w, 1) for w in walls]} ms (the first a warm-up), "
+        f"peak memory {peak:.3f} GiB, K1 per step {k1s}, K2 per step {k2s} "
+        f"[{CARD}]")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"menu-train {tag}: losses {losses}")
+    return history, k1s, k2s, walls, peak
+
+
+def phase_menu_train():
+    """The menu's training path at full width: train_distogram.py with the
+    interleaved menu JSON on a trRosetta-style directory this phase writes
+    (an .a3m of tests/data/1h22_head.pdb and the PDB), then on a
+    sidechainnet pickle `corpus_from_pdb` writes from the same PDB
+    (--scn), then train_end2end.py --data on the directory. K1 per step
+    against the count from the code; K2 never (forward only)."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from alphafold2_tpu_torch.config import Experiment
+    from alphafold2_tpu_torch.data import featurize, native
+    from alphafold2_tpu_torch.data.sidechainnet import corpus_from_pdb
+    from alphafold2_tpu_torch.scripts import train_distogram, train_end2end
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        with open(EVALUATE_PDB) as f:
+            seq = featurize.detokenize(native.parse_pdb(f.read())[0])
+        rng = np.random.default_rng(SEED)
+        rows = [seq] + ["".join("-" if rng.random() < 0.2 else c
+                                for c in seq) for _ in range(MSA_ROWS - 1)]
+        with open(os.path.join(data, "1h22.a3m"), "w") as f:
+            f.write("".join(f">r{i}\n{r}\n" for i, r in enumerate(rows)))
+        shutil.copy(EVALUATE_PDB, os.path.join(data, "1h22.pdb"))
+        scn = os.path.join(tmp, "scn.pkl")
+        with open(scn, "wb") as f:
+            pickle.dump({"train": corpus_from_pdb([EVALUATE_PDB])}, f)
+        exp = Experiment()
+        exp.model.sparse_self_attn = [True, False] * 3
+        exp.model.attn_dropout = exp.model.ff_dropout = 0.0
+        exp.data.crop_len, exp.data.msa_depth = MENU_TRAIN_CROP, MSA_ROWS
+        exp.train.num_steps, exp.train.log_every = MENU_TRAIN_STEPS, 1
+        cfg = os.path.join(tmp, "menu.json")
+        with open(cfg, "w") as f:
+            f.write(exp.to_json())
+        for tag, main_fn, module, argv in (
+                ("distogram --data", train_distogram.main, train_distogram,
+                 ["--config", cfg, "--data", data]),
+                ("distogram --scn", train_distogram.main, train_distogram,
+                 ["--config", cfg, "--scn", scn]),
+                ("end2end --data", train_end2end.main, train_end2end,
+                 ["--config", cfg, "--data", data])):
+            history, k1s, k2s, walls, peak = run_script(tag, main_fn, module,
+                                                        argv)
+            if set(k1s) != {MENU_TRAIN_LAUNCHES} or set(k2s) != {0}:
+                raise AssertionError(f"menu-train {tag}: K1 {k1s}, K2 "
+                                     f"{k2s}, predicted "
+                                     f"{MENU_TRAIN_LAUNCHES} and 0")
+            out[tag] = {"losses": [h["loss"] for h in history],
+                        "step_ms": walls, "peak_gib": peak,
+                        "k1_per_step": k1s, "k2_per_step": k2s}
+        cached = [f for f in os.listdir(data) if ".feat-" in f]
+        if len(cached) != 1:
+            raise AssertionError(f"menu-train: cache files {cached}")
+    return out
+
+
 def compare(cpu, gpu):
     """The largest difference over outputs, the largest CPU value and
     their ratio."""
@@ -3207,7 +3694,22 @@ def main(argv=None):
     e2e_rev = run("end2end-se3-rev", phase_end2end_se3_rev)
     evaluated = run("evaluate", phase_evaluate)
     refiner_errs = run("refiners-check", phase_refiners_check)
+    menu_worst, menu_times = run("menu-check", phase_menu_check)
+    for dtype in (torch.float32, torch.bfloat16):
+        worst[dtype] = max(worst[dtype],
+                           menu_worst[("fused_attention", dtype)])
+        bs_worst[dtype] = max(bs_worst[dtype],
+                              menu_worst[("block_sparse_attention", dtype)])
+    menu_parity = run("menu-parity", phase_menu_parity)
+    menu_fold = run("menu-fold", phase_menu_fold)
+    menu_variants = run("menu-variants", phase_menu_variants)
+    menu_train = run("menu-train", phase_menu_train)
     log(f"phase seconds: {json.dumps(seconds)}")
+    folds = {f["length"]: f for f in menu_fold["folds"]}
+    menu_k1 = {f"{shape}_{key}": val
+               for shape in MENU_SHAPES if shape.startswith("menu_k1")
+               for key, val in menu_times[shape].items()}
+    menu_k2 = menu_times["menu_k2_row_512"]
     record = {"kernels": [{
         "name": "fused_attention",
         "route": "cuda",
@@ -3257,6 +3759,18 @@ def main(argv=None):
         "end2end_se3_rev": e2e_rev,
         "evaluate": evaluated,
         "refiners_card_vs_cpu": refiner_errs,
+        "launches_menu_fold_512": folds[512]["k1"],
+        "launches_menu_fold_437": folds[437]["k1"],
+        "launches_menu_fold_300": folds[MENU_UNPADDED_LENGTH]["k1"],
+        "launches_menu_variants": {name: v["k1"] for name, v in
+                                   menu_variants.items()},
+        "launches_menu_train_step": menu_train["distogram --data"][
+            "k1_per_step"][-1],
+        "menu_fold": menu_fold,
+        "menu_variants": menu_variants,
+        "menu_train": menu_train,
+        "menu_parity_card_vs_cpu": menu_parity,
+        **menu_k1,
         **timing,
     }, {
         "name": "block_sparse_attention",
@@ -3276,6 +3790,13 @@ def main(argv=None):
         "launches_loadtest": loadtest["k2_launches"],
         "launches_loadtest_chaos": loadtest_chaos["k2_launches"],
         "launches_loadtest_fleet": loadtest_fleet["k2_launches"],
+        "launches_menu_fold_512": folds[512]["k2"],
+        "launches_menu_fold_437": folds[437]["k2"],
+        "launches_menu_fold_300": folds[MENU_UNPADDED_LENGTH]["k2"],
+        "launches_menu_train_step": menu_train["distogram --data"][
+            "k2_per_step"][-1],
+        "menu_fold_k2_share_of_device_time": menu_fold["k2_share"],
+        **{f"menu_row_512_{key}": val for key, val in menu_k2.items()},
         **bs_timing,
     }]}
     print(json.dumps(record), flush=True)

@@ -119,8 +119,8 @@ def test_train_end2end_matches_jax(tmp_path, monkeypatch):
 
 def test_train_end2end_flags_and_refusals(tmp_path):
     """BASELINE config 4's flags (se3, refinement, reversible) train
-    finite on the CPU at a tiny width; the trRosetta data and the mesh
-    raise with their ROADMAP items; without --device it needs a card."""
+    finite on the CPU at a tiny width; an empty --data directory and the
+    mesh raise; without --device it needs a card."""
     cfg = write_config(tmp_path, TINY, dict(crop_len=10, msa_depth=2),
                        dict(num_steps=2, log_every=1))
     history = run_quiet(pt_train.main, [
@@ -129,8 +129,11 @@ def test_train_end2end_flags_and_refusals(tmp_path):
         "--reversible"])
     assert len(history) == 2 and all(np.isfinite(h["loss"])
                                      for h in history)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pt_train.main(["--data", str(tmp_path)])
+    # --data runs (tests/test_torch_datasets.py); a directory without
+    # .a3m files raises as in the JAX package
+    with pytest.raises(FileNotFoundError, match="no .a3m files"):
+        pt_train.main(["--config", cfg, "--data", str(tmp_path),
+                       "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 10"):
         pt_train.main(["--mesh", "1,1,1"])
     if not torch.cuda.is_available():

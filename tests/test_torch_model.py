@@ -157,7 +157,15 @@ def test_outer_mean(reference_scale):
     close(jm.apply(params, x, mask=msa_mask), pm(t(x), mask=t(msa_mask)))
 
 
+# the trunk's conv blocks (use_conv) with an even kernel (SAME padding
+# puts its extra row on the high side) and two dilations
+CONV = dict(use_conv=True, conv_seq_kernels=((2, 2), (3, 1)),
+            conv_msa_kernels=((1, 3),), conv_dilations=(1, 2))
+
+
 def test_evoformer_scanned_depth2():
+    """The scanned trunk (flax `layers/block`, unstacked by the bridge),
+    with the conv blocks on both tracks."""
     rng = np.random.default_rng(5)
     x = rng.normal(size=(1, N, N, DIM)).astype(np.float32)
     m = rng.normal(size=(1, ROWS, N, DIM)).astype(np.float32)
@@ -165,11 +173,18 @@ def test_evoformer_scanned_depth2():
     mask = mask1[:, :, None] & mask1[:, None, :]
     msa_mask = np.broadcast_to(mask1[:, None], (1, ROWS, N)).copy()
     jm = jax_evo.Evoformer(dim=DIM, depth=DEPTH, heads=HEADS,
-                           dim_head=DIM_HEAD)
-    pm = pt_evo.Evoformer(DIM, DEPTH, heads=HEADS, dim_head=DIM_HEAD)
-    params = bridged(jm, pm, x, m, mask=mask, msa_mask=msa_mask)
+                           dim_head=DIM_HEAD, **CONV)
+    pm = pt_evo.Evoformer(DIM, DEPTH, heads=HEADS, dim_head=DIM_HEAD, **CONV)
+    # numpy draws on the init's shapes and the reference jitted: eager,
+    # the trunk's every primitive (the convolutions too) compiles alone
+    params = random_params(jax.eval_shape(
+        lambda key: jm.init(key, x, m, mask=mask, msa_mask=msa_mask),
+        jax.random.PRNGKey(0)), np.random.default_rng(100))
+    load_jax_params(pm, jax.tree.map(np.asarray, params))
     assert "block" in params["params"]["layers"]   # the scanned layout
-    rx, rm = jm.apply(params, x, m, mask=mask, msa_mask=msa_mask)
+    assert "conv_2x2_d2" in params["params"]["layers"]["block"]["pair_conv"]
+    rx, rm = jax.jit(lambda p: jm.apply(p, x, m, mask=mask,
+                                        msa_mask=msa_mask))(params)
     px, pm_out = pm(t(x), t(m), mask=t(mask), msa_mask=t(msa_mask))
     valid = mask[..., None]
     close(np.asarray(rx) * valid, px * t(valid))
@@ -205,9 +220,12 @@ def models():
     msa_mask = np.broadcast_to(mask[:, None], (1, ROWS, N)).copy()
     batch = dict(seq=seq, msa=msa, mask=mask, msa_mask=msa_mask)
     jm = jax_af2.Alphafold2(**MODEL_KW)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(8), seq, msa=msa,
-                              mask=mask, msa_mask=msa_mask)
-    params = perturb_numpy(params, 9)
+    # numpy draws on the init's shapes (an init, even jitted, compiles
+    # the whole model once more)
+    params = random_params(jax.eval_shape(
+        lambda key: jm.init(key, seq, msa=msa, mask=mask,
+                            msa_mask=msa_mask), jax.random.PRNGKey(8)),
+        np.random.default_rng(9))
     pm = pt_af2.Alphafold2(**MODEL_KW, device="cpu")
     load_jax_params(pm, jax.tree.map(np.asarray, params))
     return jm, params, pm, batch
@@ -350,8 +368,11 @@ def test_unrolled_depth1_bridge():
     jm = jax_af2.Alphafold2(**kw)
     # the JAX side under jit: an eager init and forward of the whole
     # model compile every primitive on its own
-    params = perturb_numpy(jax.jit(jm.init)(jax.random.PRNGKey(12), seq),
-                           13)
+    # numpy draws on the init's shapes (an init, even jitted, compiles
+    # the whole model once more)
+    params = random_params(jax.eval_shape(
+        lambda key: jm.init(key, seq), jax.random.PRNGKey(12)),
+        np.random.default_rng(13))
     assert "layers_0" in params["params"]["net"]
     pm = pt_af2.Alphafold2(**kw, device="cpu")
     load_jax_params(pm, jax.tree.map(np.asarray, params))
@@ -373,13 +394,16 @@ def test_bridge_refuses_strays_and_gaps(models):
     load_jax_params(pm, jax.tree.map(np.asarray, params))  # restore
 
 
-# options that raised until the refiners and the reversible trunk were
-# ported (tests/test_torch_refiners.py, tests/test_torch_reversible.py):
-# they build now, and the part of each that is still unported raises
+# options that raised until the refiners, the reversible trunk and the
+# README-era menu were ported (tests/test_torch_refiners.py,
+# tests/test_torch_reversible.py, tests/test_torch_menu.py): they build
+# now; only the ring trunk (queue 1, item 10) still raises
 LIFTED = {"reversible": dict(reversible=True),
           "structure_module_type": dict(structure_module_type="egnn"),
           "structure_module_refinement_iters": dict(
-              structure_module_refinement_iters=2)}
+              structure_module_refinement_iters=2),
+          "kernel": dict(sparse_self_attn=True),
+          "use_conv": dict(use_conv=True)}
 
 
 @pytest.mark.parametrize("case", [
@@ -389,25 +413,22 @@ def test_unported_options_raise(case):
     if case in LIFTED:
         model = pt_af2.Alphafold2(**dict(MODEL_KW, **LIFTED[case]),
                                   device="cpu")
-        built = {"reversible": model.net.rev,
-                 "structure_module_type": model.structure_module_refiner,
+        built = {"reversible": lambda: model.net.rev,
+                 "structure_module_type":
+                     lambda: model.structure_module_refiner,
                  "structure_module_refinement_iters":
-                     getattr(model, "coords_refiner", None)}[case]
-        assert built is not None
-        # the reversible trunk's conv coupling needs attention_variants
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt_af2.Alphafold2(**dict(MODEL_KW, **LIFTED[case],
-                                     use_conv=True), device="cpu")
+                     lambda: getattr(model, "coords_refiner", None),
+                 "kernel": lambda: model.net.layers[0].msa_attn.row_attn,
+                 "use_conv": lambda: model.net.layers[0].pair_conv}[case]
+        assert built() is not None
+        if case == "reversible":
+            # the conv couplings join the reversible trunk too
+            conv = pt_af2.Alphafold2(**dict(MODEL_KW, **LIFTED[case],
+                                            use_conv=True), device="cpu")
+            assert conv.net.rev.rev_layers[0].pair_conv is not None
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "kernel":
-            # fold(kernel=KernelSpec) is ported (tests/test_torch_serve.py);
-            # the model-level block-sparse row attention is not
-            pt_af2.Alphafold2(**dict(MODEL_KW, sparse_self_attn=True),
-                              device="cpu")
-        else:
-            pt_af2.Alphafold2(**dict(MODEL_KW, **{case: True}),
-                              device="cpu")
+        pt_af2.Alphafold2(**dict(MODEL_KW, **{case: True}), device="cpu")
 
 
 def test_structure_module_dim_head_is_accepted_and_unread():
@@ -426,10 +447,21 @@ def test_structure_module_dim_head_is_accepted_and_unread():
     ("conv_seq_kernels", ((3, 3),)), ("conv_msa_kernels", ((1, 3),)),
     ("conv_dilations", (1, 2))])
 def test_conv_fields_raise_naming_item_11(field, value):
-    """The use_conv menu's fields raise NotImplementedError naming item
-    11 unless they hold the JAX default."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pt_af2.Alphafold2(**dict(MODEL_KW, **{field: value}), device="cpu")
+    """The use_conv menu's fields, which raised naming item 11 until the
+    conv blocks were ported, now shape the conv blocks: one branch per
+    kernel and dilation, named as the flax branches; the JAX default
+    builds the default branches."""
+    model = pt_af2.Alphafold2(**dict(MODEL_KW, use_conv=True,
+                                     **{field: value}), device="cpu")
+    layer = model.net.layers[0]
+    names = {"pair": [b[0] for b in layer.pair_conv.branches],
+             "msa": [b[0] for b in layer.msa_conv.branches]}
+    want = {"conv_seq_kernels": ("pair", ["conv_3x3_d1"]),
+            "conv_msa_kernels": ("msa", ["conv_1x3_d1"]),
+            "conv_dilations": ("msa", ["conv_1x9_d1", "conv_1x9_d2",
+                                       "conv_3x3_d1", "conv_3x3_d2"])}
+    track, branches = want[field]
+    assert names[track] == branches
     default = jax_af2.Alphafold2.__dataclass_fields__[field].default
     pt_af2.Alphafold2(**dict(MODEL_KW, **{field: default}), device="cpu")
 

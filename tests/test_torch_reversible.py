@@ -1,8 +1,8 @@
 """The PyTorch port's reversible Evoformer trunk: the inverse of a layer,
 the gradients of the reversible stack against plain autograd through
 the same layers (dropout on, replayed from the same seeds), and the
-trunk and its gradients against the JAX package's `ReversibleEvoformer`
-at bridged weights, on the CPU.
+trunk (with its conv couplings) and its gradients against the JAX
+package's `ReversibleEvoformer` at bridged weights, on the CPU.
 
 Small size: dim 16, heads 2, dim_head 8, 8 residues (6 valid), 3 MSA
 rows. Weights are the init's with every parameter moved by N(0, 0.05)
@@ -29,6 +29,9 @@ from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
 from test_torch_serve import random_params
 
 D, HEADS, DIM_HEAD, N, ROWS, VALID = 16, 2, 8, 8, 3, 6
+# the conv couplings (use_conv), an even kernel among them
+CONV = dict(use_conv=True, conv_seq_kernels=((2, 2),),
+            conv_msa_kernels=((1, 3),))
 
 
 def t(x):
@@ -135,7 +138,7 @@ def jax_trunk():
     trunk's outputs and gradients at them."""
     x, m, pair_mask, msa_mask = inputs(8)
     jm = jrev.ReversibleEvoformer(dim=D, depth=2, heads=HEADS,
-                                  dim_head=DIM_HEAD)
+                                  dim_head=DIM_HEAD, **CONV)
     shapes = jax.eval_shape(lambda k: jm.init(
         k, x, m, mask=pair_mask, msa_mask=msa_mask), jax.random.PRNGKey(0))
     params = random_params(shapes, np.random.default_rng(9))
@@ -152,10 +155,12 @@ def jax_trunk():
 def test_trunk_and_gradients_match_jax(jax_trunk):
     """The reversible backward against `jax.grad` through the JAX
     trunk's custom VJP, parameters bridged layer by layer from the
-    depth-stacked flax tree."""
+    depth-stacked flax tree; the conv blocks in both FF couplings."""
     params, ref_out, (g_params, g_x, g_m) = jax_trunk
+    assert "pair_conv" in params["params"]["rev_layers"]
     x, m, pair_mask, msa_mask = (t(a) for a in inputs(8))
-    trunk = prev.ReversibleEvoformer(D, 2, heads=HEADS, dim_head=DIM_HEAD)
+    trunk = prev.ReversibleEvoformer(D, 2, heads=HEADS, dim_head=DIM_HEAD,
+                                     **CONV)
     load_jax_params(trunk, params)
     xl, ml = x.clone().requires_grad_(), m.clone().requires_grad_()
     out = trunk(xl, ml, pair_mask, msa_mask)
@@ -164,7 +169,8 @@ def test_trunk_and_gradients_match_jax(jax_trunk):
             <= 1e-4
     got = torch.autograd.grad(sum((o ** 2).sum() for o in out),
                               [xl, ml] + list(trunk.parameters()))
-    holder = prev.ReversibleEvoformer(D, 2, heads=HEADS, dim_head=DIM_HEAD)
+    holder = prev.ReversibleEvoformer(D, 2, heads=HEADS, dim_head=DIM_HEAD,
+                                      **CONV)
     load_jax_params(holder, jax.tree.map(np.asarray, g_params))
     ref = [t(np.asarray(g_x)), t(np.asarray(g_m))] + \
         [p.detach() for p in holder.parameters()]
@@ -182,12 +188,13 @@ def test_the_trunk_options_reach_the_model_and_refusals_hold():
     assert model.structure_module is None
     assert model.structure_module_refiner.iters == 4
     assert model.atom_refiner.iters == 2
-    with pytest.raises(NotImplementedError,
-                       match=r"item 11 \(attention_variants.py\)"):
-        pevo.Evoformer(D, 2, heads=HEADS, reversible=True, use_conv=True)
-    with pytest.raises(NotImplementedError,
-                       match=r"item 11 \(attention_variants.py\)"):
-        prev.ReversibleEvoformer(D, 2, heads=HEADS, use_conv=True)
+    # the conv couplings are ported (tests/test_torch_menu.py): both
+    # constructors build them
+    trunk = pevo.Evoformer(D, 2, heads=HEADS, reversible=True,
+                           use_conv=True)
+    assert trunk.rev.rev_layers[1].msa_conv is not None
+    assert prev.ReversibleEvoformer(D, 2, heads=HEADS, use_conv=True
+                                    ).rev_layers[0].pair_conv is not None
     with pytest.raises(ValueError, match="pipeline_stages"):
         pevo.Evoformer(D, 2, heads=HEADS, reversible=True,
                        pipeline_stages=2)

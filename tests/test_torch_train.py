@@ -52,7 +52,7 @@ from alphafold2_tpu_torch.train import state as pt_state
 from alphafold2_tpu_torch.utils import flops as pt_flops
 from alphafold2_tpu_torch.weights import load_jax_params
 from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
-from test_torch_serve import perturb_numpy
+from test_torch_serve import perturb_numpy, random_params
 
 
 DIM, HEADS, DIM_HEAD, N, ROWS, VALID = 32, 2, 16, 16, 3, 12
@@ -495,12 +495,14 @@ class Reference:
     def __init__(self, kw, batch, seed, dtype=jnp.float32):
         self.kw, self.batch = kw, batch
         self.jm = jax_af2.Alphafold2(**kw, dtype=dtype)
-        params = jax.jit(self.jm.init, static_argnames=("train",))(
-            {"params": jax.random.PRNGKey(seed),
-             "mlm": jax.random.PRNGKey(seed + 1)},
-            batch["seq"], msa=batch["msa"], mask=batch["mask"],
-            msa_mask=batch["msa_mask"], train=True)
-        self.params = perturb_numpy(params, seed + 2)
+        # numpy draws on the init's shapes, traced abstractly (a jitted
+        # init compiles the whole model once more)
+        shapes = jax.eval_shape(
+            lambda key: self.jm.init(
+                {"params": key, "mlm": key}, batch["seq"], msa=batch["msa"],
+                mask=batch["mask"], msa_mask=batch["msa_mask"], train=True),
+            jax.random.PRNGKey(seed))
+        self.params = random_params(shapes, np.random.default_rng(seed + 2))
         self.noise = jax_noise(batch, seed + 3)
         self.tx = jax_state.adam(LR)
         self._first = None
@@ -1090,11 +1092,15 @@ def test_train_distogram_entry_point(tmp_path):
     assert pt_ckpt.CheckpointManager(exp.train.checkpoint_dir
                                      ).latest_step() == 3
     assert len((tmp_path / "log.jsonl").read_text().splitlines()) == 3
-    for flag, item in (("--data", "item 11"), ("--mesh", "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            train_distogram.main(["--config", str(cfg), "--device", "cpu",
-                                  flag, "1,2,1" if flag == "--mesh"
-                                  else str(tmp_path)])
+    # the on-disk datasets run (tests/test_torch_datasets.py); a
+    # directory without .a3m files raises as in the JAX package, and a
+    # mesh raises naming its ROADMAP item
+    with pytest.raises(FileNotFoundError, match="no .a3m files"):
+        train_distogram.main(["--config", str(cfg), "--device", "cpu",
+                              "--data", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 10"):
+        train_distogram.main(["--config", str(cfg), "--device", "cpu",
+                              "--mesh", "1,2,1"])
 
 
 # ---------------------------------------------------------------------------

@@ -27,10 +27,12 @@ resume a fold. Every tier carries the same bytes and validates with
 `decode_checkpoint`. Counters go to `fold_checkpoint_events_total`, the
 JAX package's name.
 
-Placement: the port runs on one device, so a leaf's spec is None and a
-restore places it through `predict.restore_step_state`. A JAX payload
-whose leaf carries a "named" mesh spec decodes, but restoring it raises
-NotImplementedError (ROADMAP.md, queue 1, item 10).
+Placement: a leaf on one device has no spec and restores through
+`predict.restore_step_state`. A leaf placed on a mesh (a DTensor, or a
+`parallel.NamedSharding`) carries a "named" spec, the JAX package's
+descriptor; restoring it rebuilds the mesh over this process group's
+first ranks and places the leaf there as a DTensor, or, where the group
+has too few ranks, takes default placement, as the JAX restore does.
 
 The treedef is not on the wire: a resuming process rebuilds the row
 through its own init pass and overwrites the row's leaves with the
@@ -130,21 +132,46 @@ def clear_manifest(backend, replica_id: str) -> bool:
 
 
 def sharding_spec(sharding) -> Optional[dict]:
-    """Portable descriptor of a leaf's placement. The port places every
-    leaf on one device (a `torch.device`), whose spec is None: it
-    restores through `predict.restore_step_state`."""
-    return None
+    """Portable descriptor of a leaf's placement: a "named" spec for a
+    `parallel.NamedSharding` or a DTensor (axes, sizes and the spec, as
+    the JAX package writes it), None for anything else (a device)."""
+    from alphafold2_tpu_torch.parallel.sharding import (NamedSharding,
+                                                        active_mesh,
+                                                        is_dtensor, spec_of)
+    if is_dtensor(sharding):
+        mesh = active_mesh()
+        if mesh is None or mesh.device_mesh != sharding.device_mesh:
+            return None
+        sharding = NamedSharding(mesh, tuple(spec_of(sharding, mesh)))
+    if not isinstance(sharding, NamedSharding):
+        return None
+    mesh = sharding.mesh
+    return {"kind": "named", "axes": list(mesh.shape),
+            "sizes": [int(v) for v in mesh.shape.values()],
+            "spec": [list(p) if isinstance(p, (tuple, list)) else p
+                     for p in tuple(sharding.spec)]}
 
 
 def sharding_from_spec(desc: Optional[dict]):
-    """The placement a spec asks for: None (the leaf's own device) for
-    a single-device spec. A JAX "named" mesh spec raises: a device mesh
-    is not ported yet."""
+    """A `parallel.NamedSharding` for a "named" spec, on a mesh over
+    this process group's first ranks (every rank of the group calls
+    this); None when the spec is absent or the group has too few ranks
+    (default placement)."""
     if not desc or desc.get("kind") != "named":
         return None
-    raise NotImplementedError(
-        f"a checkpoint leaf sharded over a device mesh ({desc}) is not "
-        f"ported to PyTorch yet (ROADMAP.md, queue 1, item 10)")
+    import torch.distributed as dist
+
+    from alphafold2_tpu_torch.parallel.mesh import Mesh
+    from alphafold2_tpu_torch.parallel.sharding import (NamedSharding,
+                                                        PartitionSpec)
+    sizes = [int(v) for v in desc["sizes"]]
+    need = int(np.prod(sizes)) if sizes else 1
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world < need:
+        return None
+    mesh = Mesh(np.arange(need).reshape(sizes), tuple(desc["axes"]))
+    parts = [tuple(p) if isinstance(p, list) else p for p in desc["spec"]]
+    return NamedSharding(mesh, PartitionSpec(*parts))
 
 
 # -- the payload -----------------------------------------------------------
@@ -175,9 +202,10 @@ class RowCheckpoint:
         return n
 
     def state_entries(self, device=None) -> List[tuple]:
-        """`restore_step_state`-shaped entries (kind, value, device):
+        """`restore_step_state`-shaped entries (kind, value, placement):
         each device leaf placed on `device` (None: the default device,
-        the card). A mesh spec raises (`sharding_from_spec`)."""
+        the card), or on the `parallel.NamedSharding` its mesh spec
+        gives (`sharding_from_spec`)."""
         return [(kind, val, sharding_from_spec(spec) or device
                  if kind == "dev" else None)
                 for kind, val, spec in self.leaves]
@@ -185,11 +213,21 @@ class RowCheckpoint:
     def restore_leaves(self, device=None) -> list:
         """Decoded leaves as tensors on `device` (None: the card, or a
         raise without one), through `predict.restore_step_state` over a
-        flat list; references pass through."""
+        flat list; a leaf with a mesh spec that fits this process group
+        comes back as a DTensor placed by it; references pass through."""
         from alphafold2_tpu_torch import predict
+        from alphafold2_tpu_torch.parallel.sharding import (NamedSharding,
+                                                            place)
         entries = self.state_entries(device)
+        named = {at: e[2] for at, e in enumerate(entries)
+                 if isinstance(e[2], NamedSharding)}
+        entries = [(k, v, named[at].mesh.device if at in named else d)
+                   for at, (k, v, d) in enumerate(entries)]
         treedef = predict.tree_flatten([0] * len(entries))[1]
-        return list(predict.restore_step_state((treedef, entries)))
+        leaves = list(predict.restore_step_state((treedef, entries)))
+        for at, sharding in named.items():
+            leaves[at] = place(leaves[at], sharding.mesh, sharding.spec)
+        return leaves
 
 
 def row_checkpoint(snapshot, row: int, *, fold_key: str,

@@ -105,12 +105,12 @@ class MeshConfig:
     j: int = 1
 
     def build(self):
-        """None for one device; a mesh is not ported yet."""
+        """None for one device, else the (pipe, data, i, j) mesh over the
+        ranks of the process group (`parallel.make_mesh`)."""
+        from alphafold2_tpu_torch.parallel import make_mesh
         if self.pipe * self.data * self.i * self.j == 1:
             return None
-        raise NotImplementedError(
-            f"a device mesh ({dataclasses.asdict(self)}) is not ported to "
-            f"PyTorch yet (ROADMAP.md, queue 1, item 10)")
+        return make_mesh(self.data, self.i, self.j, pipe=self.pipe)
 
 
 @dataclass
@@ -154,8 +154,8 @@ class Experiment:
         return cls.from_dict(json.loads(text))
 
     def build(self, device=None, generator: Optional[torch.Generator] = None):
-        """(model, optimizer factory, None); the mesh raises when it has
-        more than one device."""
+        """(model, optimizer factory, mesh); the mesh is None for one
+        device."""
         from alphafold2_tpu_torch.train.state import adam
         mesh = self.mesh.build()
         model = self.model.build(device=device, generator=generator)

@@ -33,8 +33,14 @@ weights unchanged.
 `ReturnValues.msa_mlm_loss` carries the MLM loss. The README-era menu
 (`use_conv` and its kernels, `sparse_self_attn`, `linear_attn`,
 `kron_attn`, `kv_compress_ratio` and their knobs) reaches the main trunk
-only, as in the JAX package. The trunk's ring and pipeline options (queue
-1, item 10) raise NotImplementedError naming their ROADMAP item.
+only, as in the JAX package; `ring_attention` reaches the extra-MSA stack
+too, and `pipeline_stages` / `pipeline_microbatches` the main trunk.
+
+Under an active mesh (`parallel.use_mesh`) the MSA and pair activations
+are placed by `shard_msa` / `shard_pair` where the JAX model places
+them; the embeddings before those points, and the heads and the
+structure module after the trunk, run on whole tensors (the trunk's
+outputs are gathered on every rank).
 """
 
 from __future__ import annotations
@@ -55,6 +61,8 @@ from alphafold2_tpu_torch.model.primitives import (Attention, Dense,
                                                    LayerNorm, init_weights)
 from alphafold2_tpu_torch.model.refiners import AtomEGNNRefiner, Refiner
 from alphafold2_tpu_torch.model.structure import StructureModule
+from alphafold2_tpu_torch.parallel.sharding import (like, shard_msa,
+                                                    shard_pair, unshard)
 
 
 class Recyclables(NamedTuple):
@@ -167,7 +175,9 @@ class Alphafold2(nn.Module):
             use_scan=use_scan, linear_attn_kind=linear_attn_kind,
             performer_nb_features=performer_nb_features,
             sparse_block=sparse_block, sparse_num_global=sparse_num_global,
-            sparse_window=sparse_window, dtype=dtype, **trunk_options)
+            sparse_window=sparse_window,
+            pipeline_microbatches=pipeline_microbatches, dtype=dtype,
+            **trunk_options)
         self.distogram_norm = LayerNorm(dim)
         self.to_distogram_logits = Dense(dim, constants.DISTOGRAM_BUCKETS)
         if predict_coords:
@@ -213,6 +223,7 @@ class Alphafold2(nn.Module):
             attn_dropout=attn_dropout, ff_dropout=ff_dropout,
             global_column_attn=True,
             outer_mean_reference_scale=outer_mean_reference_scale,
+            ring_attention=trunk_options.get("ring_attention", False),
             dtype=dtype)
         if predict_angles:
             self.to_prob_theta = Dense(dim, constants.THETA_BUCKETS)
@@ -354,6 +365,7 @@ class Alphafold2(nn.Module):
             msa_mask = torch.ones(embedds.shape[:-1], dtype=torch.bool,
                                   device=device) \
                 if msa_mask is None else msa_mask.bool()
+        m = shard_msa(m)
 
         # pair representation by outer sum, plus relative positions
         x_left, x_right = self.to_pairwise_repr(x_single).chunk(2, dim=-1)
@@ -365,13 +377,14 @@ class Alphafold2(nn.Module):
         rel = rel.clamp(-self.max_rel_dist, self.max_rel_dist) + \
             self.max_rel_dist
         x = x + self.pos_emb(rel)[None].to(dt)
+        x = shard_pair(x)
 
         if recyclables is not None:
-            first_row = m[:, 0] + self.recycling_msa_norm(
-                recyclables.single_msa_repr_row).to(dt)
+            first_row = m[:, 0] + like(self.recycling_msa_norm(
+                recyclables.single_msa_repr_row).to(dt), m)
             m = torch.cat([first_row[:, None], m[:, 1:]], dim=1)
-            x = x + self.recycling_pairwise_norm(
-                recyclables.pairwise_repr).to(dt)
+            x = x + like(self.recycling_pairwise_norm(
+                recyclables.pairwise_repr).to(dt), x)
             coords = recyclables.coords
             dists = torch.sqrt(torch.clamp(
                 ((coords[:, :, None] - coords[:, None, :]) ** 2).sum(-1),
@@ -382,18 +395,19 @@ class Alphafold2(nn.Module):
                 device=device)[:-1].contiguous()
             buckets = torch.searchsorted(boundaries, dists.contiguous(),
                                          right=False)
-            x = x + self.recycling_distance_embed(buckets).to(dt)
+            x = x + like(self.recycling_distance_embed(buckets).to(dt), x)
 
         if templates_feats is not None:
-            x = x + self._pooled_templates(x, x_mask, templates_feats,
-                                           templates_mask, train, generator)
+            x = x + like(self._pooled_templates(
+                unshard(x), x_mask, templates_feats, templates_mask, train,
+                generator), x)
 
         # template angle features become extra MSA rows
         if templates_angles is not None:
             feats = self.template_angle_mlp_out(F.gelu(
                 self.template_angle_mlp_in(templates_angles),
                 approximate="tanh"))
-            m = torch.cat([m, feats], dim=1)
+            m = torch.cat([m, like(feats, m)], dim=1)
             msa_mask = torch.cat([msa_mask, templates_mask.bool()], dim=1)
 
         # the extra-MSA stack updates the pair (no x_single on its rows)
@@ -408,6 +422,7 @@ class Alphafold2(nn.Module):
 
         x, m = self.net(x, m, mask=x_mask, msa_mask=msa_mask, train=train,
                         generator=generator)
+        x, m = unshard(x), unshard(m)
 
         # heads (fp32): theta and phi on the pair as it is, the distogram
         # (and omega under symmetrize_omega) on the symmetrised pair

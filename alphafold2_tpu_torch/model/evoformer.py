@@ -17,9 +17,17 @@ gradients off, and with `use_scan=False`, it is the plain loop.
 menu (`sparse_self_attn`, `linear_attn`, `kron_attn`,
 `kv_compress_ratio`: a bool or int for every layer, or one entry per
 layer) swaps the MSA row attention of each layer for a variant, as the
-JAX `Evoformer._row_variants` resolves it. The JAX package's pipeline
-and ring options are not ported: selecting one raises and names the
-ROADMAP item that will bring it.
+JAX `Evoformer._row_variants` resolves it.
+
+Under an active mesh (`parallel.use_mesh`) the blocks place the pair and
+MSA activations with `shard_pair` / `shard_msa` where the JAX blocks do.
+`ring_attention=True` runs the two triangle attentions and the MSA row
+attention ring-parallel when the mesh shards their attended axis.
+`pipeline_stages=S` runs the trunk as a GPipe pipeline over the mesh's
+``pipe`` axis (`_pipeline_forward`): stage s applies layers
+[s * depth / S, (s + 1) * depth / S) on the ranks at pipe coordinate s,
+over `pipeline_microbatches` microbatches. The menu and the conv blocks
+have no sharded rule: under a mesh they run on the gathered activations.
 """
 
 from __future__ import annotations
@@ -47,8 +55,16 @@ from alphafold2_tpu_torch.model.primitives import (
     LayerNorm,
     OuterMean,
     TriangleMultiplicativeModule,
-    not_ported,
 )
+from alphafold2_tpu_torch.parallel.mesh import (DATA_AXIS, PAIR_I_AXIS,
+                                                PAIR_J_AXIS, PIPE_AXIS)
+from alphafold2_tpu_torch.parallel.sharding import (active_mesh, clean_spec,
+                                                    is_dtensor, keep_mesh,
+                                                    msa_spec,
+                                                    pair_spec,
+                                                    replicated_call,
+                                                    shard_msa, shard_pair,
+                                                    to_spec)
 
 ROW_VARIANTS = ("full", "sparse", "linear", "compress", "kron")
 
@@ -63,8 +79,10 @@ class PairwiseAttentionBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int = 64,
                  dropout: float = 0.0, global_column_attn: bool = False,
                  outer_mean_reference_scale: bool = False,
-                 with_outer_mean: bool = True, dtype=torch.float32):
+                 with_outer_mean: bool = True, ring_attention: bool = False,
+                 dtype=torch.float32):
         super().__init__()
+        ring_axes = (PAIR_I_AXIS, PAIR_J_AXIS) if ring_attention else None
         self.outer_mean = OuterMean(
             dim, reference_scale=outer_mean_reference_scale, dtype=dtype) \
             if with_outer_mean else None
@@ -74,11 +92,12 @@ class PairwiseAttentionBlock(nn.Module):
             dim, mix="ingoing", dtype=dtype)
         self.triangle_attention_outgoing = AxialAttention(
             dim, heads, dim_head, row_attn=True, col_attn=False,
-            accept_edges=True, dropout=dropout, dtype=dtype)
+            accept_edges=True, dropout=dropout, ring_axes=ring_axes,
+            dtype=dtype)
         self.triangle_attention_ingoing = AxialAttention(
             dim, heads, dim_head, row_attn=False, col_attn=True,
             accept_edges=True, global_query_attn=global_column_attn,
-            dropout=dropout, dtype=dtype)
+            dropout=dropout, ring_axes=ring_axes, dtype=dtype)
 
     def forward(self, x, mask=None, msa_repr=None, msa_mask=None,
                 train: bool = False,
@@ -88,13 +107,15 @@ class PairwiseAttentionBlock(nn.Module):
                 raise ValueError("this pair block was built without an "
                                  "outer mean and takes no MSA")
             x = x + self.outer_mean(msa_repr, mask=msa_mask)
+            x = shard_pair(x)
         x = self.triangle_multiply_outgoing(x, mask=mask) + x
         x = self.triangle_multiply_ingoing(x, mask=mask) + x
+        x = shard_pair(x)
         x = self.triangle_attention_outgoing(
             x, edges=x, mask=mask, train=train, generator=generator) + x
         x = self.triangle_attention_ingoing(
             x, edges=x, mask=mask, train=train, generator=generator) + x
-        return x
+        return shard_pair(x)
 
 
 class MsaAttentionBlock(nn.Module):
@@ -114,7 +135,7 @@ class MsaAttentionBlock(nn.Module):
                  sparse_window: int = 1, kv_compress_ratio: int = 2,
                  linear_attn_kind: str = "favor",
                  performer_nb_features: int = 256, seed: int = 0,
-                 dtype=torch.float32):
+                 ring_attention: bool = False, dtype=torch.float32):
         super().__init__()
         if row_variant not in ROW_VARIANTS:
             raise ValueError(f"unknown row_variant {row_variant!r}")
@@ -123,7 +144,9 @@ class MsaAttentionBlock(nn.Module):
         if row_variant == "full":
             self.row_attn = AxialAttention(
                 dim, heads, dim_head, row_attn=True, col_attn=False,
-                accept_edges=True, dropout=dropout, dtype=dtype)
+                accept_edges=True, dropout=dropout,
+                ring_axes=(None, PAIR_I_AXIS) if ring_attention else None,
+                dtype=dtype)
         else:
             self.row_norm = LayerNorm(dim, dtype)
             if row_variant == "sparse":
@@ -159,10 +182,15 @@ class MsaAttentionBlock(nn.Module):
                                        train, generator) + x
         x = self.col_attn(x, mask=mask, train=train,
                           generator=generator) + x
-        return x
+        return shard_msa(x)
 
     def _row_variant_attn(self, x, mask, pairwise_repr, pair_mask, train,
                           generator):
+        if is_dtensor(x) or is_dtensor(pairwise_repr):
+            return replicated_call(
+                lambda xs, pair: self._row_variant_attn(
+                    xs, mask, pair, pair_mask, train, generator),
+                x, pairwise_repr)
         b, rows, n, d = x.shape
         hf = self.row_norm(x).reshape(b * rows, n, d)
         mf = None if mask is None else mask.reshape(b * rows, n)
@@ -205,18 +233,20 @@ class EvoformerBlock(nn.Module):
                  conv_seq_kernels=DEFAULT_CONV_SEQ_KERNELS,
                  conv_msa_kernels=DEFAULT_CONV_MSA_KERNELS,
                  conv_dilations=(1,), msa_row_variant: str = "full",
-                 dtype=torch.float32, **row_options):
+                 ring_attention: bool = False, dtype=torch.float32,
+                 **row_options):
         super().__init__()
         self.msa_attn = MsaAttentionBlock(dim, heads, dim_head,
                                           dropout=attn_dropout,
                                           row_variant=msa_row_variant,
+                                          ring_attention=ring_attention,
                                           dtype=dtype, **row_options)
         self.msa_ff = FeedForward(dim, dropout=ff_dropout, dtype=dtype)
         self.attn = PairwiseAttentionBlock(
             dim, heads, dim_head, dropout=attn_dropout,
             global_column_attn=global_column_attn,
             outer_mean_reference_scale=outer_mean_reference_scale,
-            dtype=dtype)
+            ring_attention=ring_attention, dtype=dtype)
         self.ff = FeedForward(dim, dropout=ff_dropout, dtype=dtype)
         self.msa_conv = self.pair_conv = None
         if use_conv:
@@ -231,21 +261,15 @@ class EvoformerBlock(nn.Module):
                           train=train, generator=generator)
         m = self.msa_ff(m, train=train, generator=generator) + m
         if self.msa_conv is not None:
-            m = self.msa_conv(m, mask=msa_mask) + m
+            m = replicated_call(lambda t: self.msa_conv(t, mask=msa_mask),
+                                m) + m
         x = self.attn(x, mask=mask, msa_repr=m, msa_mask=msa_mask,
                       train=train, generator=generator)
         x = self.ff(x, train=train, generator=generator) + x
         if self.pair_conv is not None:
-            x = self.pair_conv(x, mask=mask) + x
+            x = replicated_call(lambda t: self.pair_conv(t, mask=mask),
+                                x) + x
         return x, m
-
-
-# options of the JAX Evoformer that the port refuses, with their defaults
-# and the ROADMAP item that ports them
-_NOT_PORTED = {
-    "ring_attention": (False, "queue 1, item 10 (parallel/ring.py)"),
-    "pipeline_stages": (1, "queue 1, item 10 (parallel/pipeline.py)"),
-}
 
 
 def row_variants(depth: int, sparse_self_attn=False, linear_attn=False,
@@ -287,15 +311,6 @@ def row_variants(depth: int, sparse_self_attn=False, linear_attn=False,
     return tuple(variants), cr
 
 
-def check_not_ported(options: dict):
-    for name, value in options.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(f"Evoformer got an unexpected option {name!r}")
-        default, roadmap = _NOT_PORTED[name]
-        if value != default:
-            not_ported(name, value, roadmap)
-
-
 def _rematerialised(layer: EvoformerBlock, x, m, mask, msa_mask,
                     train: bool, generator: Optional[torch.Generator]):
     """One layer under `torch.utils.checkpoint`. The recompute in the
@@ -303,8 +318,9 @@ def _rematerialised(layer: EvoformerBlock, x, m, mask, msa_mask,
     replays the default generators itself, and an explicit `generator`
     is replayed here (set to its state before the layer for the
     recompute, then put back where the run had taken it)."""
+    call = keep_mesh(layer)
     if generator is None or not train:
-        return checkpoint(layer, x, m, mask, msa_mask, train, generator,
+        return checkpoint(call, x, m, mask, msa_mask, train, generator,
                           use_reentrant=False)
     before = generator.get_state()
     calls = []
@@ -312,11 +328,11 @@ def _rematerialised(layer: EvoformerBlock, x, m, mask, msa_mask,
     def run(x, m):
         if not calls:
             calls.append(True)
-            return layer(x, m, mask, msa_mask, train, generator)
+            return call(x, m, mask, msa_mask, train, generator)
         after = generator.get_state()
         generator.set_state(before)
         try:
-            return layer(x, m, mask, msa_mask, train, generator)
+            return call(x, m, mask, msa_mask, train, generator)
         finally:
             generator.set_state(after)
 
@@ -326,8 +342,11 @@ def _rematerialised(layer: EvoformerBlock, x, m, mask, msa_mask,
 class Evoformer(nn.Module):
     """depth x EvoformerBlock; under gradients with `use_scan` each layer
     is rematerialised (checkpointed). `reversible` builds the reversible
-    trunk instead. The menu (module doc) is refused beside `reversible`,
-    `pipeline_stages > 1` or `ring_attention`, with the JAX messages."""
+    trunk instead. `ring_attention` and `pipeline_stages` /
+    `pipeline_microbatches` are the mesh options (module doc). The menu
+    is refused beside `reversible`, `pipeline_stages > 1` or
+    `ring_attention`, and the pipeline beside the reversible or an
+    unscanned trunk, with the JAX messages."""
 
     def __init__(self, dim: int, depth: int, heads: int = 8,
                  dim_head: int = 64, attn_dropout: float = 0.0,
@@ -342,31 +361,38 @@ class Evoformer(nn.Module):
                  sparse_block: int = 32, sparse_num_global: int = 1,
                  sparse_window: int = 1, linear_attn_kind: str = "favor",
                  performer_nb_features: int = 256,
-                 dtype=torch.float32, **options):
+                 ring_attention: bool = False, pipeline_stages: int = 1,
+                 pipeline_microbatches: int = 0, dtype=torch.float32):
         super().__init__()
         variants, ratios = row_variants(depth, sparse_self_attn,
                                         linear_attn, kron_attn,
                                         kv_compress_ratio)
         if any(v != "full" for v in variants):
-            if options.get("pipeline_stages", 1) > 1 or reversible:
+            if pipeline_stages > 1 or reversible:
                 raise ValueError(
                     "the efficient-attention menu is not supported with "
                     "pipeline_stages>1 or reversible=True")
-            if options.get("ring_attention", False):
+            if ring_attention:
                 raise ValueError(
                     "the efficient-attention menu is not supported with "
                     "ring_attention=True (the variant row track is not "
                     "ring-parallel)")
-        if reversible:
-            # the JAX package's refusals of the reversible trunk
-            if options.get("pipeline_stages", 1) > 1:
+        if pipeline_stages > 1:
+            if reversible:
                 raise ValueError("pipeline_stages>1 is not supported with "
-                                 "the reversible trunk")
-            if outer_mean_reference_scale:
-                raise ValueError("reversible trunk does not support "
-                                 "outer_mean_reference_scale yet")
-        check_not_ported(options)
+                                 "the reversible trunk (pp regroups the "
+                                 "scan-stacked params)")
+            if not use_scan or depth <= 1:
+                raise ValueError("pipeline_stages>1 requires use_scan=True "
+                                 "and depth>1")
+        if reversible and outer_mean_reference_scale:
+            raise ValueError("reversible trunk does not support "
+                             "outer_mean_reference_scale yet")
+        self.depth = depth
         self.use_scan = use_scan
+        self.pipeline_stages = pipeline_stages
+        self.pipeline_microbatches = pipeline_microbatches
+        self.has_dropout = attn_dropout > 0.0 or ff_dropout > 0.0
         self.rev = None
         conv = dict(use_conv=use_conv, conv_seq_kernels=conv_seq_kernels,
                     conv_msa_kernels=conv_msa_kernels,
@@ -378,7 +404,7 @@ class Evoformer(nn.Module):
                 dim, depth, heads=heads, dim_head=dim_head,
                 global_column_attn=global_column_attn,
                 attn_dropout=attn_dropout, ff_dropout=ff_dropout,
-                dtype=dtype, **conv)
+                ring_attention=ring_attention, dtype=dtype, **conv)
             return
         self.layers = nn.ModuleList(
             EvoformerBlock(dim, heads, dim_head, attn_dropout=attn_dropout,
@@ -395,14 +421,141 @@ class Evoformer(nn.Module):
                            kv_compress_ratio=ratios[i] or 2,
                            linear_attn_kind=linear_attn_kind,
                            performer_nb_features=performer_nb_features,
-                           seed=i, dtype=dtype, **conv)
+                           seed=i, ring_attention=ring_attention,
+                           dtype=dtype, **conv)
             for i in range(depth))
+
+    def _pipeline_ready(self):
+        """The active mesh if the pipeline path applies, else None."""
+        if self.pipeline_stages <= 1:
+            return None
+        mesh = active_mesh()
+        if mesh is None or PIPE_AXIS not in mesh.shape:
+            return None
+        if mesh.shape[PIPE_AXIS] != self.pipeline_stages:
+            raise ValueError(
+                f"pipeline_stages={self.pipeline_stages} but mesh "
+                f"'{PIPE_AXIS}' axis has {mesh.shape[PIPE_AXIS]} devices")
+        if self.depth % self.pipeline_stages:
+            raise ValueError(
+                f"depth {self.depth} not divisible into "
+                f"{self.pipeline_stages} pipeline stages")
+        return mesh
+
+    def pipelined_parameters(self) -> list:
+        """The parameters each pipeline stage updates alone: their
+        gradients are summed over ``pipe`` after the backward
+        (`parallel.pipeline.sync_stage_grads`)."""
+        if self.pipeline_stages <= 1 or self.rev is not None:
+            return []
+        return list(self.layers.parameters())
+
+    def _pipeline_forward(self, mesh, x, m, mask, msa_mask, train,
+                          generator):
+        """GPipe over the layers (`parallel.pipeline.gpipe`): the rank at
+        pipe coordinate s runs layers [s * depth / S, (s + 1) * depth / S)
+        on each microbatch, rematerialised under gradients as the scanned
+        trunk is. The pair and MSA activations hop between stages as the
+        rank's local blocks of their `shard_pair` / `shard_msa`
+        placements, so the pipeline composes with data parallelism (each
+        rank microbatches its own rows) and with the 2-D pair sharding
+        inside a stage. Dropout draws from one generator per
+        (microbatch, layer), seeded from one draw of `generator`."""
+        from torch.distributed.tensor import DTensor
+
+        from alphafold2_tpu_torch.parallel.pipeline import (gpipe,
+                                                            microbatch,
+                                                            stage_input,
+                                                            unmicrobatch)
+        from alphafold2_tpu_torch.parallel.ring import _seed_of
+
+        s_count = self.pipeline_stages
+        per = self.depth // s_count
+        stage = mesh.coord(PIPE_AXIS)
+        b = x.shape[0]
+        data_n = mesh.shape.get(DATA_AXIS, 1)
+        if self.pipeline_microbatches:
+            m_count = self.pipeline_microbatches
+        else:
+            # the most microbatches whose batch still tiles over `data`
+            m_count = b // data_n if (data_n > 1 and b % data_n == 0) \
+                else b
+        if b % m_count:
+            raise ValueError(f"batch {b} not divisible into {m_count} "
+                             "microbatches")
+        x_spec = clean_spec(mesh, pair_spec(), x.shape)
+        m_spec = clean_spec(mesh, msa_spec(), m.shape)
+        n_data = mesh.shape[DATA_AXIS] if x_spec[0] == DATA_AXIS and \
+            m_spec[0] == DATA_AXIS else 1
+        if (b // n_data) % m_count:
+            # the rows of a rank do not split into the microbatches:
+            # keep the batch whole on every rank
+            x_spec[0] = m_spec[0] = None
+            n_data = 1
+        x_d, m_d = to_spec(x, mesh, x_spec), to_spec(m, mesh, m_spec)
+        x_pl, m_pl = x_d.placements, m_d.placements
+        b_local = b // n_data
+        per_mb = b_local // m_count
+
+        def rows(mb):
+            return torch.tensor([d * b_local + mb * per_mb + r
+                                 for d in range(n_data)
+                                 for r in range(per_mb)],
+                                device=x_d.to_local().device)
+
+        seed = None
+        gen_device = torch.device("cpu") if generator is None \
+            else generator.device
+        if train and self.has_dropout:
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                     device=gen_device).item())
+        layers = self.layers[stage * per:(stage + 1) * per]
+        remat = self.use_scan and torch.is_grad_enabled()
+
+        def stage_fn(_, act, mb):
+            xl, ml = act
+            xi = DTensor.from_local(xl, mesh.device_mesh, x_pl,
+                                    run_check=False)
+            mi = DTensor.from_local(ml, mesh.device_mesh, m_pl,
+                                    run_check=False)
+            at = rows(mb)
+            pm = None if mask is None else mask[at]
+            mm = None if msa_mask is None else msa_mask[at]
+            for j, layer in enumerate(layers):
+                gen = None if seed is None else \
+                    torch.Generator(device=gen_device).manual_seed(
+                        _seed_of(seed, mb, stage * per + j))
+                if remat:
+                    xi, mi = _rematerialised(layer, xi, mi, pm, mm, train,
+                                             gen)
+                else:
+                    xi, mi = layer(xi, mi, mask=pm, msa_mask=mm,
+                                   train=train, generator=gen)
+            return (to_spec(xi, mesh, x_spec).to_local(),
+                    to_spec(mi, mesh, m_spec).to_local())
+
+        xs = (microbatch(stage_input(x_d, mesh), m_count),
+              microbatch(stage_input(m_d, mesh), m_count))
+        x_out, m_out = gpipe(stage_fn, None, xs, mesh, PIPE_AXIS,
+                             anchors=list(layers.parameters()))
+        return (DTensor.from_local(unmicrobatch(x_out), mesh.device_mesh,
+                                   x_pl, run_check=False),
+                DTensor.from_local(unmicrobatch(m_out), mesh.device_mesh,
+                                   m_pl, run_check=False))
 
     def forward(self, x, m, mask=None, msa_mask=None, train: bool = False,
                 generator: Optional[torch.Generator] = None):
+        # placement hints at the trunk's entry (no value changes): every
+        # block then meets DTensors under a mesh, never a plain tensor
+        # that needs a gradient
+        x, m = shard_pair(x), shard_msa(m)
         if self.rev is not None:
             return self.rev(x, m, mask=mask, msa_mask=msa_mask, train=train,
                             generator=generator)
+        mesh = self._pipeline_ready()
+        if mesh is not None:
+            return self._pipeline_forward(mesh, x, m, mask, msa_mask, train,
+                                          generator)
         remat = self.use_scan and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:

@@ -41,14 +41,12 @@ from alphafold2_tpu_torch.ops.block_sparse import (active_kernel_plan,
                                                    active_kernel_spec,
                                                    block_sparse_attention,
                                                    kernel_context)
-
-
-def not_ported(option: str, value, roadmap: str):
-    """Raise for an option the port does not run yet, naming the ROADMAP
-    item that will bring it (never run something else silently)."""
-    raise NotImplementedError(
-        f"{option}={value!r} is not ported to PyTorch yet "
-        f"(ROADMAP.md, {roadmap})")
+from alphafold2_tpu_torch.parallel.mesh import DATA_AXIS
+from alphafold2_tpu_torch.parallel.sharding import (P, active_mesh,
+                                                    clean_spec, feature_call,
+                                                    is_dtensor, like,
+                                                    local_call, spec_of,
+                                                    to_spec)
 
 
 def random_uniform(shape, generator: Optional[torch.Generator],
@@ -93,6 +91,8 @@ class Dense(nn.Linear):
     def forward(self, x):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
+        if is_dtensor(x):
+            return feature_call(F.linear, x.to(dt), self.weight.to(dt), bias)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
@@ -105,8 +105,13 @@ class LayerNorm(nn.LayerNorm):
         self.compute_dtype = dtype
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps).to(self.compute_dtype)
+        if is_dtensor(x):
+            return feature_call(self._norm, x, self.weight, self.bias)
+        return self._norm(x, self.weight, self.bias)
+
+    def _norm(self, x, weight, bias):
+        return F.layer_norm(x.float(), self.normalized_shape, weight, bias,
+                            self.eps).to(self.compute_dtype)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator):
@@ -228,9 +233,21 @@ class Attention(nn.Module):
         is None), and a block-sparse spec never applies to a call with a
         context. With `train=True` and dropout > 0 the softmax weights
         are dropped out on the plain path."""
-        h, dh = self.heads, self.dim_head
-        has_context = context is not None
         q, k, v = self.project_qkv(x, kv_input=context)   # (b, h, n, dh)
+        return self.finish(self.attend(
+            q, k, v, mask=mask, attn_bias=attn_bias,
+            has_context=context is not None, context_mask=context_mask,
+            tie_dim=tie_dim, attn_bias_repeat=attn_bias_repeat, train=train,
+            generator=generator), x)
+
+    def attend(self, q, k, v, mask=None, attn_bias=None,
+               has_context: bool = False, context_mask=None,
+               tie_dim: Optional[int] = None, attn_bias_repeat: int = 1,
+               train: bool = False,
+               generator: Optional[torch.Generator] = None):
+        """The attention of `forward` on projected heads: q (pre-scaled),
+        k, v (b, h, n, dh) plain tensors -> (b, h, n, dh)."""
+        h, dh = self.heads, self.dim_head
         drop = train and self.dropout > 0.0
         cmask = None
         if mask is not None:
@@ -248,7 +265,7 @@ class Attention(nn.Module):
                                      or not spec.covers(n_q)):
                 spec = None
             if spec is not None and spec.backend == "auto" and not drop:
-                return self._block_sparse(q, k, v, x, mask, attn_bias,
+                return self._block_sparse(q, k, v, mask, attn_bias,
                                           attn_bias_repeat, spec)
             if spec is not None:
                 # "masked" (or "auto" under active dropout: K2 has no
@@ -265,9 +282,9 @@ class Attention(nn.Module):
                     f"pass: this layer takes the plain attention path. Set "
                     f"attn_dropout=0.0 or run with train=False to keep the "
                     f"kernel.", stacklevel=2)
-                return self.finish(self._plain_dropout(
+                return self._plain_dropout(
                     q, k, v, mask, cmask, attn_bias, attn_bias_repeat,
-                    generator), x)
+                    generator)
             bias = None
             if attn_bias is not None:
                 # the kernel replays the (b, heads) bias over the fold by
@@ -283,7 +300,7 @@ class Attention(nn.Module):
                 q_mask=None if mask is None else mask.contiguous(),
                 k_mask=None if cmask is None else cmask.contiguous(),
                 heads=h, bias_repeat=attn_bias_repeat)
-            return self.finish(out.reshape(b_all, h, n_q, dh), x)
+            return out.reshape(b_all, h, n_q, dh)
 
         # global-query attention: queries averaged over the tied rows
         # (never block-sparse)
@@ -303,8 +320,7 @@ class Attention(nn.Module):
         attn = torch.softmax(dots, dim=-1)
         if drop:
             attn = dropout(attn, self.dropout, generator)
-        out = torch.einsum("bhij,bhjd->bhid", attn, v)
-        return self.finish(out, x)
+        return torch.einsum("bhij,bhjd->bhid", attn, v)
 
     def _plain_dropout(self, q, k, v, mask, cmask, attn_bias,
                        attn_bias_repeat, generator):
@@ -323,7 +339,7 @@ class Attention(nn.Module):
         attn = dropout(torch.softmax(dots, dim=-1), self.dropout, generator)
         return torch.einsum("bhij,bhjd->bhid", attn.to(v.dtype), v)
 
-    def _block_sparse(self, q, k, v, x, mask, attn_bias, attn_bias_repeat,
+    def _block_sparse(self, q, k, v, mask, attn_bias, attn_bias_repeat,
                       spec):
         """Self-attention over the spec's live blocks (kernel K2 on the
         card, its plain version on the CPU): the bias unrepeated, the mask
@@ -350,7 +366,7 @@ class Attention(nn.Module):
             plan, bias=bias, bias_repeat=attn_bias_repeat,
             k_mask=None if mask is None else mask.bool().contiguous(),
             heads=h, scale=1.0)
-        return self.finish(out.reshape(b_all, h, n, dh), x)
+        return out.reshape(b_all, h, n, dh)
 
 
 class AxialAttention(nn.Module):
@@ -360,13 +376,28 @@ class AxialAttention(nn.Module):
     (b, I, J, d) into a per-head bias, replayed over the folded axis.
     `sparse_kernel_ok=False` runs the attention outside any active
     block-sparse spec (the MSA column attention attends alignment rows,
-    never residues)."""
+    never residues).
+
+    Under an active mesh (`parallel.use_mesh`):
+    - long-context mode: when `ring_axes=(axis of H, axis of W)` names
+      the mesh axes sharding x's two spatial dims and the attended axis
+      is sharded over more than one rank, the attention runs as
+      `parallel.ring.pair_row_attention_sharded`, exact blockwise
+      softmax with the K/V shards rotating around the ring, through the
+      same parameters (the ring reuses the inner Attention's
+      projections). Global-query attention never rings; dropout runs
+      inside the ring;
+    - otherwise, on a DTensor input, the projections run on the DTensor
+      and the attention runs on each rank's local block with the
+      attended axis whole (`parallel.sharding.local_call`): kernel K1
+      (or K2) gets plain local tensors."""
 
     def __init__(self, dim: int, heads: int, dim_head: int = 64,
                  row_attn: bool = True, col_attn: bool = False,
                  accept_edges: bool = False,
                  global_query_attn: bool = False, dropout: float = 0.0,
-                 sparse_kernel_ok: bool = True, dtype=torch.float32):
+                 sparse_kernel_ok: bool = True,
+                 ring_axes: Optional[tuple] = None, dtype=torch.float32):
         super().__init__()
         if row_attn == col_attn:
             raise ValueError("has to be either row or column attention, "
@@ -374,6 +405,7 @@ class AxialAttention(nn.Module):
         self.row_attn = row_attn
         self.global_query_attn = global_query_attn
         self.sparse_kernel_ok = sparse_kernel_ok
+        self.ring_axes = ring_axes
         self.norm = LayerNorm(dim, dtype)
         self.attn = Attention(dim, heads=heads, dim_head=dim_head,
                               dropout=dropout, dtype=dtype)
@@ -381,10 +413,129 @@ class AxialAttention(nn.Module):
                                         dtype=dtype) if accept_edges \
             else None
 
+    def _ring_mesh(self, height, width):
+        """The active mesh if the ring path applies, else None. A
+        ring_axes entry may be None: that spatial dim is not sharded
+        (the MSA track's alignment rows)."""
+        if self.ring_axes is None or self.global_query_attn:
+            return None
+        mesh = active_mesh()
+        if mesh is None:
+            return None
+        ax_h, ax_w = self.ring_axes
+        ax_att = ax_w if self.row_attn else ax_h
+        if ax_att is None or mesh.shape.get(ax_att, 1) <= 1:
+            return None
+        for dim, ax in ((height, ax_h), (width, ax_w)):
+            if ax is not None and ax in mesh.shape and dim % mesh.shape[ax]:
+                return None
+        return mesh
+
+    def _edge_bias(self, edges):
+        if self.edges_to_attn_bias is None or edges is None:
+            return None
+        # (b, i, j, d) -> per-head bias (b, heads, i, j)
+        return self.edges_to_attn_bias(edges).permute(0, 3, 1, 2)
+
+    def _ring_forward(self, x, edges, mask, mesh, train, generator):
+        """Ring-parallel axial attention over the sharded attended axis.
+        Outputs match the dense path at every valid query; the full
+        (b, H, W) mask rides in as per-row key validity, so arbitrary
+        (non-separable) masks hold exactly."""
+        from alphafold2_tpu_torch.parallel.ring import (
+            pair_row_attention_sharded)
+
+        ax_h, ax_w = self.ring_axes
+        given = spec_of(x, mesh) if is_dtensor(x) else None
+        x = to_spec(x, mesh, clean_spec(mesh, P(DATA_AXIS, ax_h, ax_w),
+                                        x.shape))
+        attn = self.attn
+        q, k, v = attn.project_qkv(x)    # (b, h, H, W, dh), q pre-scaled
+        bias = self._edge_bias(like(edges, x))
+        drop = {}
+        if train and attn.dropout > 0.0:
+            device = torch.device("cpu") if generator is None \
+                else generator.device
+            drop = dict(dropout_rate=attn.dropout, dropout_key=int(
+                torch.randint(0, 2 ** 62, (1,), generator=generator,
+                              device=device).item()))
+        if self.row_attn:
+            out = pair_row_attention_sharded(
+                q, k, v, bias, mesh, i_axis=ax_h, j_axis=ax_w, mask=mask,
+                **drop)
+        else:
+            swap = lambda t: t.transpose(2, 3)   # noqa: E731
+            out = swap(pair_row_attention_sharded(
+                swap(q), swap(k), swap(v), bias, mesh, i_axis=ax_w,
+                j_axis=ax_h, mask=None if mask is None else
+                mask.transpose(1, 2), **drop))
+        out = attn.finish(out, x)
+        return out if given is None else to_spec(out, mesh, given)
+
+    def _local_forward(self, x, edges, mask, mesh, train, generator):
+        """A DTensor input under a mesh: projections on the DTensor, the
+        attention on each rank's block with the attended axis whole (and
+        the folded axis whole too for global-query attention); the bias
+        is whole on every rank, as the dense path needs it. A column
+        attention runs as the row attention of the transposed map, so
+        every matmul sees the rows in the dense path's order."""
+        attn = self.attn
+        if not is_dtensor(x):
+            x = like(x, edges)
+        given = spec_of(x, mesh)
+        if not self.row_attn:
+            x = x.transpose(1, 2)
+            mask = None if mask is None else mask.transpose(1, 2)
+        axes = spec_of(x, mesh)
+        data = axes[0]
+        keep = None if self.global_query_attn else axes[1]
+        q_spec = P(data, None, keep, None, None)
+        # the attended axis whole before the projections: a map sharded
+        # on both spatial axes in the transposed order has no flattening
+        # rule in DTensor
+        x = to_spec(x, mesh, P(data, keep))
+        q, k, v = attn.project_qkv(x)    # (b, h, rows, n, dh)
+        bias = self._edge_bias(like(edges, x))
+
+        def core(ql, kl, vl, bl, ml):
+            # fold the rows into the batch: (b * rows, h, n, dh)
+            folded = [t.transpose(1, 2) for t in (ql, kl, vl)]
+            bsz, rows, hh, n, dh = folded[0].shape
+            qf, kf, vf = (t.reshape(bsz * rows, hh, n, dh) for t in folded)
+            out = attn.attend(
+                qf, kf, vf,
+                mask=None if ml is None else ml.reshape(bsz * rows, n),
+                attn_bias=bl,
+                tie_dim=rows if self.global_query_attn else None,
+                attn_bias_repeat=rows if bl is not None else 1,
+                train=train, generator=generator)
+            return out.reshape(bsz, rows, hh, n, dh).transpose(1, 2)
+
+        out = attn.finish(local_call(
+            core, mesh, (q, k, v, bias, mask),
+            (q_spec,) * 3 + (P(data), P(data, keep)), q_spec), x)
+        if not self.row_attn:
+            out = out.transpose(1, 2)
+        # back in the input's placement: the residual add then meets two
+        # operands placed alike (DTensor's add of a transposed placement
+        # beside another gave wrong gradients)
+        return to_spec(out, mesh, given)
+
     def forward(self, x, edges=None, mask=None, train: bool = False,
                 generator: Optional[torch.Generator] = None):
         b, height, width, d = x.shape
         x = self.norm(x)
+        off = not self.sparse_kernel_ok and active_kernel_spec() is not None
+
+        ring_mesh = self._ring_mesh(height, width)
+        if ring_mesh is not None:
+            return self._ring_forward(x, edges, mask, ring_mesh, train,
+                                      generator)
+        mesh = active_mesh()
+        if mesh is not None and (is_dtensor(x) or is_dtensor(edges)):
+            with kernel_context(None) if off else contextlib.nullcontext():
+                return self._local_forward(x, edges, mask, mesh, train,
+                                           generator)
 
         if self.row_attn:
             axial_dim = height
@@ -397,12 +548,7 @@ class AxialAttention(nn.Module):
             mask_fold = None if mask is None else \
                 mask.transpose(1, 2).reshape(b * width, height)
 
-        attn_bias = None
-        if self.edges_to_attn_bias is not None and edges is not None:
-            # (b, i, j, d) -> per-head bias (b, heads, i, j)
-            attn_bias = self.edges_to_attn_bias(edges).permute(0, 3, 1, 2)
-
-        off = not self.sparse_kernel_ok and active_kernel_spec() is not None
+        attn_bias = self._edge_bias(edges)
         with kernel_context(None) if off else contextlib.nullcontext():
             out = self.attn(
                 x_fold, mask=mask_fold, attn_bias=attn_bias,
@@ -451,10 +597,23 @@ class TriangleMultiplicativeModule(nn.Module):
         left = left * torch.sigmoid(self.left_gate(x))
         right = right * torch.sigmoid(self.right_gate(x))
         out_gate = torch.sigmoid(self.out_gate(x))
-        if self.mix == "outgoing":
-            out = torch.einsum("bikd,bjkd->bijd", left, right)
+        outgoing = self.mix == "outgoing"
+
+        def mix(lt, rt):
+            if outgoing:
+                return torch.einsum("bikd,bjkd->bijd", lt, rt)
+            return torch.einsum("bkjd,bkid->bijd", lt, rt)
+
+        if is_dtensor(left):
+            # each rank contracts the whole k for its (i, j) block
+            mesh = active_mesh()
+            data, ai, aj, _ = spec_of(x, mesh)
+            lspec, rspec = (P(data, ai), P(data, aj)) if outgoing else \
+                (P(data, None, aj), P(data, None, ai))
+            out = local_call(mix, mesh, (left, right), (lspec, rspec),
+                             P(data, ai, aj))
         else:
-            out = torch.einsum("bkjd,bkid->bijd", left, right)
+            out = mix(left, right)
         out = self.out_norm(out) * out_gate
         return self.to_out(out)
 
@@ -482,16 +641,29 @@ class OuterMean(nn.Module):
         x = self.norm(x)
         left = self.left_proj(x)
         right = self.right_proj(x)
-        if mask is not None:
-            m = mask.to(x.dtype)                       # (b, m, n)
-            left = left * m[..., None]
-            right = right * m[..., None]
-            outer = torch.einsum("bmid,bmjd->bijd", left, right)
-            counts = torch.einsum("bmi,bmj->bij", m, m)[..., None]
-            if self.reference_scale:
-                outer = outer / rows / (counts + self.eps)
-            else:
-                outer = outer / (counts + self.eps)
-        else:
-            outer = torch.einsum("bmid,bmjd->bijd", left, right) / rows
+        if not is_dtensor(left):
+            return self.proj_out(self._outer(left, right, mask, mask, rows))
+        # under a mesh: each rank takes the outer products of its own
+        # residues i (the MSA's sharded axis) with every residue j
+        mesh = active_mesh()
+        data, _, ax, _ = spec_of(left, mesh)
+        outer = local_call(
+            lambda lt, rt, ml, mr: self._outer(lt, rt, ml, mr, rows), mesh,
+            (left, right, mask, mask),
+            (P(data, None, ax, None), P(data), P(data, None, ax), P(data)),
+            P(data, ax))
         return self.proj_out(outer)
+
+    def _outer(self, left, right, mask_left, mask_right, rows):
+        """(b, m, i, d) x (b, m, j, d) -> the (b, i, j, d) outer mean."""
+        if mask_left is None:
+            return torch.einsum("bmid,bmjd->bijd", left, right) / rows
+        ml = mask_left.to(left.dtype)                  # (b, m, i)
+        mr = mask_right.to(right.dtype)                # (b, m, j)
+        left = left * ml[..., None]
+        right = right * mr[..., None]
+        outer = torch.einsum("bmid,bmjd->bijd", left, right)
+        counts = torch.einsum("bmi,bmj->bij", ml, mr)[..., None]
+        if self.reference_scale:
+            return outer / rows / (counts + self.eps)
+        return outer / (counts + self.eps)

@@ -47,6 +47,8 @@ from alphafold2_tpu_torch.model.attention_variants import (
 from alphafold2_tpu_torch.model.evoformer import (MsaAttentionBlock,
                                                   PairwiseAttentionBlock)
 from alphafold2_tpu_torch.model.primitives import FeedForward
+from alphafold2_tpu_torch.parallel.sharding import (active_mesh, manual_axes,
+                                                    use_mesh)
 
 _SEED_MIX = 0x9E3779B97F4A7C15
 _SEED_RANGE = 2 ** 62
@@ -61,14 +63,18 @@ class RevEvoLayer(nn.Module):
                  ff_dropout: float = 0.0, use_conv: bool = False,
                  conv_seq_kernels=DEFAULT_CONV_SEQ_KERNELS,
                  conv_msa_kernels=DEFAULT_CONV_MSA_KERNELS,
-                 conv_dilations=(1,), dtype=torch.float32):
+                 conv_dilations=(1,), ring_attention: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.msa_attn = MsaAttentionBlock(dim, heads, dim_head,
-                                          dropout=attn_dropout, dtype=dtype)
+                                          dropout=attn_dropout,
+                                          ring_attention=ring_attention,
+                                          dtype=dtype)
         self.msa_ff = FeedForward(dim, dropout=ff_dropout, dtype=dtype)
         self.pair_attn = PairwiseAttentionBlock(
             dim, heads, dim_head, dropout=attn_dropout,
-            global_column_attn=global_column_attn, dtype=dtype)
+            global_column_attn=global_column_attn,
+            ring_attention=ring_attention, dtype=dtype)
         self.pair_ff = FeedForward(dim, dropout=ff_dropout, dtype=dtype)
         self.msa_conv = self.pair_conv = None
         if use_conv:
@@ -164,11 +170,18 @@ class _ReversibleStack(torch.autograd.Function):
         ctx.trunk, ctx.train, ctx.seed, ctx.device = trunk, train, seed, \
             device
         ctx.masks = (mask, msa_mask)
+        # the backward re-runs the layers under the forward's mesh
+        ctx.mesh = (active_mesh(), manual_axes())
         ctx.save_for_backward(*out)
         return out
 
     @staticmethod
     def backward(ctx, *grads):
+        with use_mesh(*ctx.mesh):
+            return _ReversibleStack._backward(ctx, grads)
+
+    @staticmethod
+    def _backward(ctx, grads):
         layers = ctx.trunk.rev_layers
         mask, msa_mask = ctx.masks
         streams = tuple(s.detach() for s in ctx.saved_tensors)
@@ -210,13 +223,15 @@ class ReversibleEvoformer(nn.Module):
                  conv_seq_kernels=DEFAULT_CONV_SEQ_KERNELS,
                  conv_msa_kernels=DEFAULT_CONV_MSA_KERNELS,
                  conv_dilations=(1,), attn_dropout: float = 0.0,
-                 ff_dropout: float = 0.0, dtype=torch.float32):
+                 ff_dropout: float = 0.0, ring_attention: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.has_dropout = attn_dropout > 0.0 or ff_dropout > 0.0
         self.rev_layers = nn.ModuleList(
             RevEvoLayer(dim, heads, dim_head,
                         global_column_attn=global_column_attn,
                         attn_dropout=attn_dropout, ff_dropout=ff_dropout,
+                        ring_attention=ring_attention,
                         use_conv=use_conv, conv_seq_kernels=conv_seq_kernels,
                         conv_msa_kernels=conv_msa_kernels,
                         conv_dilations=conv_dilations, dtype=dtype)

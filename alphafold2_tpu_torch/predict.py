@@ -5,7 +5,8 @@
 `fold_init` / `fold_step` split the same loop into steps a scheduler can
 own, and `fold_init_rows` re-initialises chosen batch rows. Every entry
 point runs one function per pass (`_one_pass`), under
-`torch.inference_mode()`, on the CUDA card unless `device` names another
+`torch.inference_mode()` (`torch.no_grad()` under an active mesh), on the
+CUDA card unless `device` names another
 (the model must already live there).
 
 `**extra` are the model's other inputs (templates, template angles, the
@@ -74,6 +75,16 @@ _EXTRA_DTYPES = {
     "seq_index": torch.long}
 
 
+
+def _grad_off():
+    """`torch.inference_mode()`, or `torch.no_grad()` under an active
+    mesh: DTensor's autograd functions (the wrap of a parameter as a
+    replicated DTensor) detach their outputs in place under inference
+    mode, which DTensor has no rule for."""
+    from alphafold2_tpu_torch.parallel.sharding import active_mesh
+    return torch.no_grad() if active_mesh() is not None \
+        else torch.inference_mode()
+
 def _prepare(model, device, seq, msa, mask, msa_mask, kernel, plan, extra):
     """Check the call, move the inputs onto the model's device and make
     the kernel's device plan when none was given."""
@@ -127,7 +138,7 @@ def fold(model, seq, msa=None, mask=None, msa_mask=None,
     """Run the model with `num_recycles` recycling iterations."""
     seq, msa, mask, msa_mask, plan, extra = _prepare(
         model, device, seq, msa, mask, msa_mask, kernel, plan, extra)
-    with torch.inference_mode():
+    with _grad_off():
         coords, ret = _one_pass(model, seq, msa, mask, msa_mask, None,
                                 extra, kernel, plan)
         for _ in range(num_recycles):
@@ -144,7 +155,7 @@ def fold_init(model, seq, msa=None, mask=None, msa_mask=None, device=None,
     R x fold_step computes what fold(..., num_recycles=R) does."""
     seq, msa, mask, msa_mask, plan, extra = _prepare(
         model, device, seq, msa, mask, msa_mask, kernel, plan, extra)
-    with torch.inference_mode():
+    with _grad_off():
         return _step_state(*_one_pass(model, seq, msa, mask, msa_mask,
                                       None, extra, kernel, plan))
 
@@ -156,7 +167,7 @@ def fold_step(model, seq, recyclables: Recyclables, msa=None, mask=None,
     """One recycle iteration, fed the previous state's `recyclables`."""
     seq, msa, mask, msa_mask, plan, extra = _prepare(
         model, device, seq, msa, mask, msa_mask, kernel, plan, extra)
-    with torch.inference_mode():
+    with _grad_off():
         return _step_state(*_one_pass(model, seq, msa, mask, msa_mask,
                                       recyclables, extra, kernel, plan))
 
@@ -180,7 +191,7 @@ def fold_init_rows(model, seq, row_mask, state: FoldStepState, msa=None,
     fresh = fold_init(model, seq, msa=msa, mask=mask, msa_mask=msa_mask,
                       device=device, kernel=kernel, plan=plan, **extra)
     row_mask = torch.as_tensor(row_mask, device=fresh.coords.device).bool()
-    with torch.inference_mode():
+    with _grad_off():
         return _select_rows(row_mask, fresh, state)
 
 

@@ -16,9 +16,10 @@ only when given. Batches come from a trRosetta-style directory of
 else from `data.synthetic.synthetic_batch` draws with a CA trace, seeded
 by their index; the loss is the coordinate loss (Kabsch RMSD and the
 distogram dispersion), the confidence regression and the MLM loss
-(`train.compute_loss`). A mesh (`--mesh`) is not ported (ROADMAP.md,
-queue 1, item 10) and raises. Runs `train.fit`,
-prints the step-time summary, saves a checkpoint when the experiment
+(`train.compute_loss`). `--mesh data,i,j` (or `pipe,data,i,j`) trains
+on a mesh over the ranks of a `torchrun` launch, the train state placed
+by `parallel.shard_pytree_tp_zero`. Runs `train.fit`, prints the
+step-time summary, saves a checkpoint when the experiment
 names a `checkpoint_dir`, and returns the logged history.
 """
 
@@ -32,10 +33,10 @@ import torch
 from alphafold2_tpu_torch.config import Experiment
 from alphafold2_tpu_torch.data.synthetic import synthetic_batch
 from alphafold2_tpu_torch.device import resolve_device
+from alphafold2_tpu_torch.parallel import shard_pytree_tp_zero
+from alphafold2_tpu_torch.parallel.multihost import initialize, parse_mesh
 from alphafold2_tpu_torch.train import CheckpointManager, TrainState, fit
 from alphafold2_tpu_torch.utils import MetricsLogger, StepTimer
-
-_ITEM = "ROADMAP.md, queue 1, item {}"
 
 
 def main(argv=None):
@@ -59,10 +60,6 @@ def main(argv=None):
                     help="default: the CUDA card (cpu runs the plain path)")
     args = ap.parse_args(argv)
 
-    if args.mesh is not None:
-        raise NotImplementedError(f"--mesh: a device mesh is not ported to "
-                                  f"PyTorch yet ({_ITEM.format(10)})")
-
     if args.config:
         with open(args.config) as f:
             exp = Experiment.from_json(f.read())
@@ -84,8 +81,13 @@ def main(argv=None):
     if args.data is not None:
         exp.data.root = args.data
 
+    if args.mesh is not None:
+        (exp.mesh.pipe, exp.mesh.data, exp.mesh.i,
+         exp.mesh.j) = parse_mesh(args.mesh)
+    # a multi-process launch (torchrun) joins its process group first
+    initialize(backend="gloo" if args.device == "cpu" else None)
     device = resolve_device(args.device)
-    model, tx, _ = exp.build(
+    model, tx, mesh = exp.build(
         device=device,
         generator=torch.Generator().manual_seed(exp.train.seed))
 
@@ -108,13 +110,16 @@ def main(argv=None):
         batches = synthetic_stream()
 
     state = TrainState.create(model, tx, seed=exp.train.seed + 2)
+    if mesh is not None:
+        # TP specs for the projection weights, ZeRO for the rest
+        state = shard_pytree_tp_zero(state, mesh)
     timer = StepTimer()
     logger = MetricsLogger(args.log)
     try:
         state, history = fit(model, state, batches,
                              exp.train.num_steps,
                              log_every=exp.train.log_every, logger=logger,
-                             step_timer=timer)
+                             step_timer=timer, mesh=mesh)
     finally:
         logger.close()
     print("step time:", timer.summary())

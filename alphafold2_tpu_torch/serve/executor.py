@@ -22,8 +22,10 @@ of `obs.trace.NULL_TRACE`: `compile` when a key is built, `fold`,
 `faults` takes a chaos plan with `on_executor_run(batch, variant=,
 recycle=)` and `mutate_result(batch, result)` hooks.
 
-Not ported yet (ROADMAP.md): multi-device slices and meshes (queue 1,
-item 10) and CUDA-graph capture per key (queue 2, item 8).
+Not ported yet (ROADMAP.md): multi-device slices (queue 1, step F2: a
+mesh in PyTorch is one process per card, and the scheduler's one
+process must drive those ranks) and CUDA-graph capture per key (queue
+2, item 8).
 """
 
 from __future__ import annotations
@@ -207,7 +209,8 @@ class FoldExecutor:
             raise NotImplementedError(
                 f"a slice of {len(devices)} devices (mesh "
                 f"{mesh_label(mesh_shape)}) is not ported to PyTorch yet "
-                f"(ROADMAP.md, queue 1, item 10: parallel/)")
+                f"(ROADMAP.md, queue 1, step F2: one process per card, "
+                f"driven from the scheduler)")
         dev = devices[0]
         if dev == self.model.device:
             return self.model, (str(dev),), mesh_shape

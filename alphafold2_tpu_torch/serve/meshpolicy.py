@@ -34,7 +34,7 @@ Everything here is policy + bookkeeping: nothing runs on a device, and
 a scheduler constructed with `mesh_policy=None` never touches it. A
 slice of more than one device is clamped to the pool as the JAX package
 clamps it on a one-device host; the executor raises on a multi-device
-slice (meshes are not ported yet).
+slice (ROADMAP.md, queue 1, step F2).
 """
 
 from __future__ import annotations

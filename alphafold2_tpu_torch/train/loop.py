@@ -11,8 +11,11 @@
 
 The step runs eagerly on the model's device; the attention forward is
 kernel K1 on the card, and its backward recomputes the plain attention
-(`ops/attention.py`), as the JAX package's VJP does. A mesh is not
-ported: `shard_batch` raises for one (ROADMAP.md, queue 1, item 10).
+(`ops/attention.py`), as the JAX package's VJP does. Under a mesh
+(`fit(mesh=...)` or an active `parallel.use_mesh`) every rank runs the
+step on the whole batch, whose rows the model's `shard_*` placements
+shard over ``data``; forward and backward run under the mesh, and a
+pipelined trunk's stage gradients are summed over ``pipe``.
 """
 
 from __future__ import annotations
@@ -21,10 +24,10 @@ from typing import Optional
 
 import torch
 
+from alphafold2_tpu_torch.parallel.mesh import PIPE_AXIS
+from alphafold2_tpu_torch.parallel.sharding import active_mesh, use_mesh
 from alphafold2_tpu_torch.train import losses
 from alphafold2_tpu_torch.train.state import TrainState, model_device
-
-_ITEM10 = "ROADMAP.md, queue 1, item 10 (parallel/)"
 
 
 def _mask_of(batch):
@@ -87,16 +90,31 @@ def compute_loss(model, batch, generator: Optional[torch.Generator] = None,
     return loss, metrics
 
 
-def _gradients(loss, params):
+def _gradients(loss, params, model=None):
     """d loss / d params; a parameter the loss does not reach (the
     recycling embedder of a step without recycles, the templates and the
     extra-MSA stack of a batch without them) gets None, which the
-    optimizer takes as the zero gradient `jax.grad` gives it."""
-    return list(torch.autograd.grad(loss, params, allow_unused=True))
+    optimizer takes as the zero gradient `jax.grad` gives it. Under a
+    mesh with a ``pipe`` axis, the stage parameters of a pipelined trunk
+    in `model` get their gradients summed over the stages."""
+    grads = list(torch.autograd.grad(loss, params, allow_unused=True))
+    mesh = active_mesh()
+    if model is None or mesh is None or mesh.shape.get(PIPE_AXIS, 1) <= 1:
+        return grads
+    from alphafold2_tpu_torch.parallel.pipeline import sync_stage_grads
+    staged = {id(p) for mod in model.modules()
+              for p in getattr(mod, "pipelined_parameters", list)()}
+    at = [i for i, p in enumerate(params) if id(p) in staged]
+    if at:
+        synced = sync_stage_grads([grads[i] for i in at],
+                                  [params[i] for i in at], mesh)
+        for i, g in zip(at, synced):
+            grads[i] = g
+    return grads
 
 
 def _apply(state: TrainState, loss, metrics):
-    state.apply_gradients(_gradients(loss, state.params))
+    state.apply_gradients(_gradients(loss, state.params, state.model))
     return state, {k: v.detach() for k, v in metrics.items()}
 
 
@@ -159,11 +177,13 @@ def make_eval_step(model):
 
 
 def shard_batch(batch, mesh=None, device=None):
-    """Place a host batch on `device` (the model's device in `fit`); a
-    mesh is not ported."""
+    """Place a host batch on `device` (the model's device in `fit`). On
+    a mesh (`mesh`, or the active one) the batch goes whole to this
+    rank's device: every rank holds the global batch, and the model's
+    `shard_*` placements shard its rows over ``data``."""
+    mesh = mesh or active_mesh()
     if mesh is not None:
-        raise NotImplementedError(f"a device mesh is not ported to PyTorch "
-                                  f"yet ({_ITEM10})")
+        device = mesh.device
     return {k: torch.as_tensor(v).to(device, non_blocking=True)
             if device is not None else torch.as_tensor(v)
             for k, v in batch.items()}
@@ -171,10 +191,13 @@ def shard_batch(batch, mesh=None, device=None):
 
 def fit(model, state: TrainState, batches, num_steps: int,
         log_every: int = 10, logger=None, step_timer=None,
-        prefetch: int = 2, registry=None):
+        prefetch: int = 2, registry=None, mesh=None):
     """Host loop: consumes an iterator of batches, runs the train step,
     logs scalar metrics. `prefetch` stages that many batches onto the
     device from a background thread (`train/prefetch.py`); 0 disables.
+    `mesh` (default: the active one) runs every step under it; place the
+    state first (`parallel.shard_pytree_tp_zero`) to shard its optimizer
+    state.
 
     Reports into the process-wide metrics registry (`registry=None` =
     `obs.registry.get_registry()`): `train_steps_total`, a
@@ -190,11 +213,13 @@ def fit(model, state: TrainState, batches, num_steps: int,
     m_metric = reg.gauge("train_metric",
                          "last logged training metric value", ("name",))
 
+    mesh = mesh or active_mesh()
     device = model_device(model)
     pre_placed = prefetch > 0
     if pre_placed:
         from alphafold2_tpu_torch.train.prefetch import device_prefetch
-        batches = device_prefetch(batches, size=prefetch, device=device)
+        batches = device_prefetch(batches, size=prefetch, mesh=mesh,
+                                  device=device)
     train_step = make_train_step(model)
     history = []
     try:
@@ -202,9 +227,10 @@ def fit(model, state: TrainState, batches, num_steps: int,
             batch = next(batches)
             if step_timer is not None:
                 step_timer.start()
-            state, metrics = train_step(
-                state, batch if pre_placed else
-                shard_batch(batch, device=device))
+            with use_mesh(mesh):
+                state, metrics = train_step(
+                    state, batch if pre_placed else
+                    shard_batch(batch, mesh, device=device))
             if step_timer is not None:
                 step_timer.stop()
                 # a StepTimer wired to a registry histogram records itself

@@ -28,19 +28,22 @@ def device_prefetch(batches: Iterator[dict], size: int = 2, mesh=None,
                     device=None) -> Iterator[dict]:
     """Wrap a host batch iterator: a daemon thread stages up to `size`
     batches on `device` (tensors as they are when None) while the
-    caller's step runs. The batches it yields are already placed. A mesh
-    is not ported (ROADMAP.md, queue 1, item 10)."""
+    caller's step runs. The batches it yields are already placed. On a
+    mesh (`mesh`, or the one active on the caller's thread: the worker's
+    thread sees none) they go to the rank's device (`shard_batch`)."""
+    from alphafold2_tpu_torch.parallel.sharding import active_mesh
     from alphafold2_tpu_torch.train.loop import shard_batch
 
+    mesh = mesh or active_mesh()
     if mesh is not None:
-        shard_batch({}, mesh)   # raises, naming the ROADMAP item
+        device = mesh.device
     device = None if device is None else torch.device(device)
     on_card = device is not None and device.type == "cuda"
     stream = torch.cuda.Stream(device) if on_card else None
 
     def place(batch):
         if not on_card:
-            return shard_batch(batch, device=device), None
+            return shard_batch(batch, mesh, device=device), None
         with torch.cuda.stream(stream):
             placed = {k: torch.as_tensor(v).pin_memory().to(
                 device, non_blocking=True) for k, v in batch.items()}

@@ -25,6 +25,12 @@ places.
 The three schedules of `alphafold2_tpu/train/state.py:33-71`: constant;
 warmup alone (a linear ramp from 0, then the peak held); warmup then
 cosine decay to `end_lr_ratio * learning_rate`.
+
+On a mesh, `Adam.place` (what `parallel.shard_pytree_tp_zero` calls on a
+TrainState) turns the moments and the accumulator into DTensors placed
+by the ZeRO / tensor-parallel specs of their parameters: each rank keeps
+and updates its block of them, from its block of the (whole) gradient,
+and the updated blocks are gathered back into the whole parameters.
 """
 
 from __future__ import annotations
@@ -140,10 +146,40 @@ class Adam:
         self.mini_step = 0
         self.acc = zeros() if grad_accum_every > 1 else None
         self.reached = [False] * len(self.params)
+        self.mesh = None
+        self.specs = None
 
     def tensors(self) -> List[torch.Tensor]:
         """Every state tensor (moments and accumulator)."""
         return self.mu + self.nu + (self.acc or [])
+
+    def place(self, mesh, specs) -> None:
+        """Place the moments and the accumulator by one PartitionSpec
+        per parameter (ZeRO stage 1: the parameters stay whole)."""
+        from alphafold2_tpu_torch.parallel.sharding import place
+        self.mesh, self.specs = mesh, list(specs)
+        for name in ("mu", "nu", "acc"):
+            xs = getattr(self, name)
+            if xs is not None:
+                setattr(self, name, [place(x, mesh, spec) for x, spec
+                                     in zip(xs, self.specs)])
+
+    def _local(self, at: int, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a whole tensor of parameter `at`."""
+        if self.mesh is None:
+            return t
+        from alphafold2_tpu_torch.parallel.sharding import (clean_spec,
+                                                            local_part)
+        return local_part(t, self.mesh, clean_spec(
+            self.mesh, self.specs[at], t.shape))
+
+    def _gather(self, at: int, block: torch.Tensor) -> torch.Tensor:
+        """A parameter's whole value from every rank's block."""
+        from torch.distributed.tensor import DTensor
+        placements = self.mu[at].placements
+        return DTensor.from_local(block.contiguous(),
+                                  self.mesh.device_mesh, placements,
+                                  run_check=False).full_tensor()
 
     @torch.no_grad()
     def update(self, grads: Sequence[Optional[torch.Tensor]]) -> bool:
@@ -159,11 +195,13 @@ class Adam:
         live = [at for at, reached in enumerate(self.reached) if reached]
         grads = [torch.zeros_like(self.params[at]) if grads[at] is None
                  else grads[at] for at in live]
-        params, mu, nu = ([xs[at] for at in live]
-                          for xs in (self.params, self.mu, self.nu))
+        mu, nu = ([_to_local(xs[at]) for at in live]
+                  for xs in (self.mu, self.nu))
         if self.acc is not None:
-            acc = [self.acc[at] for at in live]
+            acc = [_to_local(self.acc[at]) for at in live]
             if live:
+                if self.mesh is not None:
+                    grads = [self._local(at, g) for at, g in zip(live, grads)]
                 diff = torch._foreach_sub(grads, acc)
                 torch._foreach_div_(diff, float(self.mini_step + 1))
                 torch._foreach_add_(acc, diff)
@@ -173,10 +211,18 @@ class Adam:
             grads = [a.clone() for a in acc]
             for a in acc:
                 a.zero_()
+            if self.mesh is not None:
+                # the clip's global norm reads whole gradients
+                grads = [self._gather(at, g) for at, g in zip(live, grads)]
         if self.max_grad_norm is not None and live:
             grads = clip_by_global_norm(grads, self.max_grad_norm,
                                         positions=live,
                                         size=len(self.params))
+        if self.mesh is not None:
+            grads = [self._local(at, g) for at, g in zip(live, grads)]
+        params = [self._local(at, self.params[at]).clone()
+                  if self.mesh is not None else self.params[at]
+                  for at in live]
         lr = self.schedule(self.count)
         self.count += 1
         if not live:
@@ -191,11 +237,22 @@ class Adam:
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(step, denom)
         torch._foreach_add_(params, step, alpha=-lr)
+        if self.mesh is not None:
+            for at, block in zip(live, params):
+                self.params[at].copy_(self._gather(at, block))
         return True
 
     def state_dict(self) -> dict:
+        """The state with whole tensors (placed ones gathered), so a
+        checkpoint loads onto any mesh or none."""
+        def whole(xs):
+            return None if xs is None else [
+                x.full_tensor() if hasattr(x, "full_tensor") else x
+                for x in xs]
+
         return {"count": self.count, "mini_step": self.mini_step,
-                "mu": self.mu, "nu": self.nu, "acc": self.acc}
+                "mu": whole(self.mu), "nu": whole(self.nu),
+                "acc": whole(self.acc)}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict):
@@ -206,13 +263,20 @@ class Adam:
             if (mine is None) != (theirs is None):
                 raise ValueError(f"optimizer state {name!r} does not match "
                                  f"this optimizer's accumulation")
-            for dst, src in zip(mine or [], theirs or []):
-                dst.copy_(src)
+            for at, (dst, src) in enumerate(zip(mine or [],
+                                                theirs or [])):
+                _to_local(dst).copy_(self._local(at, src))
         # a parameter with any nonzero state has had a gradient
+        # (read from the whole saved tensors: every rank agrees)
         flags = [torch.stack([t.ne(0).any() for t in states]).any()
-                 for states in zip(*(xs for xs in (self.mu, self.nu,
-                                                   self.acc) if xs))]
+                 for states in zip(*(state[name] for name in
+                                     ("mu", "nu", "acc") if state[name]))]
         self.reached = torch.stack(flags).tolist() if flags else []
+
+
+def _to_local(t):
+    """A placed state tensor's block on this rank (a plain one as is)."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 @dataclass

@@ -222,7 +222,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
    `--scn` on a pickle `corpus_from_pdb` writes, and
    `scripts/train_end2end.py --data <dir>`: 3 steps each on 64-residue
    crops, K1 48 a step (the sparse rows under gradients take K1 with
-   the pattern bias), K2 0, finite losses, walls and peak memory.
+   the pattern bias), K2 0, finite losses, walls and peak memory;
+22. mesh: a one-rank NCCL process group (a FileStore in a temporary
+   directory, no network port) and `parallel.make_mesh()` over the card
+   (`make_mesh(2, 1, 1)` must raise JAX's error); the train phase's
+   contract architecture in fp32 with `ring_attention=True`, its state
+   placed by `shard_pytree_tp_zero`, 3 steps through `train.fit(mesh=)`
+   against the same steps without a mesh: losses within 1e-5 relative,
+   updated parameters within 1e-4 absolute (the largest update beside
+   it), equal K1
+   launches a step (every attention reaches K1 through the DTensor
+   wrapping; no ring on one rank) and the placed state's bytes equal to
+   the unplaced state's; the default model folds 131 residues in the
+   256 bucket under the mesh and without (coords within 1e-3, equal K1);
+   a "named" fold-checkpoint leaf restored onto the mesh, bit-equal;
+23. ring: the ring's arithmetic at full width: K1's 512 triangle shape
+   (B = 4096, N = 512, D = 64, 437 real, bias replayed) in fp32 split
+   into 2 and 4 key shards in one process and accumulated with
+   `parallel.ring._block_attend`, against K1 on the whole at every valid
+   query (within 1e-4); one `_block_attend` step at S = 4 timed beside
+   K1 (CUDA events). A multi-card mesh needs one process per card
+   (`torchrun`); one card runs none.
 
 Each phase prints its seconds.
 
@@ -3584,6 +3604,247 @@ def phase_menu_train():
     return out
 
 
+# the mesh phase's train steps, and the ring phase's key shards
+MESH_STEPS = 3
+RING_SHARDS = (2, 4)
+# fp32 gates of the mesh phase (the one-rank mesh runs the same local
+# ops; only summation order may differ) and of the ring phase (phase
+# 3's fp32 tolerance). Parameters are held absolutely: 3 Adam steps at
+# 3e-4 move one by at most 9e-4, and Adam's m / sqrt(v) turns fp32
+# rounding in a near-zero gradient into up to the whole step, so a gap
+# relative to the largest update says little
+MESH_LOSS_RTOL = 1e-5
+MESH_PARAM_ATOL = 1e-4
+RING_ATOL = TOLERANCE[torch.float32]
+
+
+def contract_model(**kw):
+    """The train phase's contract architecture (dim 256, depth 2, heads
+    8, dim_head 64, unrolled trunk) in fp32, seeded."""
+    from alphafold2_tpu_torch import Alphafold2
+    return Alphafold2(dim=256, depth=2, heads=8, dim_head=64,
+                      use_scan=False, dtype=torch.float32, device="cuda",
+                      generator=torch.Generator().manual_seed(SEED), **kw)
+
+
+def mesh_train(model, batch, mesh):
+    """MESH_STEPS steps through `train.fit` (on `mesh` when given, the
+    state placed by `shard_pytree_tp_zero`): (losses, K1 launches a
+    step, the state's bytes on this rank, the unplaced state's)."""
+    import itertools
+    from alphafold2_tpu_torch.parallel import (pytree_bytes_per_device,
+                                               shard_pytree_tp_zero)
+    from alphafold2_tpu_torch.train import TrainState, adam, fit
+    state = TrainState.create(model, adam(3e-4), seed=SEED + 2)
+    whole = pytree_bytes_per_device(state)
+    if mesh is not None:
+        state = shard_pytree_tp_zero(state, mesh)
+    placed = pytree_bytes_per_device(state)
+    reset_launches()
+    state, history = fit(model, state, itertools.repeat(batch), MESH_STEPS,
+                         log_every=1, mesh=mesh)
+    k1, _ = read_launches()
+    return [h["loss"] for h in history], k1 / MESH_STEPS, placed, whole
+
+
+def phase_mesh():
+    """A one-rank NCCL process group (FileStore rendezvous in a temporary
+    directory): the (pipe, data, i, j) mesh over the card; the contract
+    architecture in fp32 with ring_attention=True trained MESH_STEPS
+    steps on the mesh (state placed by shard_pytree_tp_zero) against the
+    same steps without a mesh; the 256 bucket folded under the mesh and
+    without; a "named" fold-checkpoint leaf round-tripped on the card."""
+    import tempfile
+    import torch.distributed as dist
+    from alphafold2_tpu_torch import ModelConfig, fold
+    from alphafold2_tpu_torch.cache import checkpoints as ckpt
+    from alphafold2_tpu_torch.data.synthetic import pad_to, synthetic_batch
+    from alphafold2_tpu_torch.parallel import (NamedSharding, PartitionSpec,
+                                               is_dtensor, make_mesh,
+                                               use_mesh)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh()
+            try:
+                make_mesh(2, 1, 1)
+                raise AssertionError("make_mesh(2, 1, 1) on one rank did "
+                                     "not raise")
+            except ValueError as e:
+                out["refusal"] = str(e)
+            log(f"mesh: {mesh}; make_mesh(2, 1, 1) raises: "
+                f"{out['refusal']}")
+
+            plain, ring = contract_model(), contract_model(
+                ring_attention=True)
+            ring.load_state_dict(plain.state_dict())
+            start = {n: p.detach().clone()
+                     for n, p in plain.named_parameters()}
+            batch = synthetic_batch(np.random.default_rng(SEED + 1),
+                                    batch=1, seq_len=BUCKET,
+                                    msa_depth=MSA_ROWS)
+            t0 = time.perf_counter()
+            ref_losses, ref_k1, _, whole = mesh_train(plain, batch, None)
+            plain_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            losses, k1, placed, _ = mesh_train(ring, batch, mesh)
+            mesh_s = time.perf_counter() - t0
+            loss_err = max(abs(a - b) / abs(b)
+                           for a, b in zip(losses, ref_losses))
+            params = dict(ring.named_parameters())
+            top = max(float((p.detach() - start[n]).abs().max())
+                      for n, p in plain.named_parameters())
+            param_gap = max(float((params[n].detach() - p.detach())
+                                  .abs().max())
+                            for n, p in plain.named_parameters())
+            out["train"] = dict(
+                losses=losses, ref_losses=ref_losses, loss_rel_err=loss_err,
+                param_abs_err=param_gap, largest_update=top,
+                update_rel_err=param_gap / top, k1_per_step=k1,
+                ref_k1_per_step=ref_k1, state_bytes=placed,
+                unplaced_state_bytes=whole, wall_s=mesh_s,
+                ref_wall_s=plain_s)
+            log(f"mesh train (contract architecture, fp32, ring_attention, "
+                f"{MESH_STEPS} steps, {BUCKET} residues): losses {losses} "
+                f"vs {ref_losses} without the mesh (largest relative gap "
+                f"{loss_err:.3e}); updated parameters' gap {param_gap:.3e} "
+                f"(the largest update {top:.3e}); K1 {k1:g} a step vs "
+                f"{ref_k1:g}; "
+                f"state bytes {placed} vs {whole}; {mesh_s:.1f} s vs "
+                f"{plain_s:.1f} s")
+            if not (loss_err <= MESH_LOSS_RTOL
+                    and param_gap <= MESH_PARAM_ATOL):
+                raise AssertionError("the meshed steps differ from the "
+                                     "steps without a mesh")
+            if k1 != ref_k1 or k1 <= 0:
+                raise AssertionError(f"K1 launched {k1} times a step on "
+                                     f"the mesh, {ref_k1} without")
+            if placed != whole:
+                raise AssertionError(f"placed state {placed} B on one rank "
+                                     f"!= {whole} B unplaced")
+            del plain, ring, start, params
+
+            model = ModelConfig(predict_coords=True).build(
+                device="cuda", generator=torch.Generator().manual_seed(SEED))
+            perturb(model, SEED + 1)
+            req = synthetic_batch(np.random.default_rng(SEED + 2),
+                                  seq_len=LENGTHS[-1], msa_depth=MSA_ROWS,
+                                  with_coords=False)
+            req = {key: pad_to(val, BUCKET, axis=val.dim() - 1)
+                   for key, val in req.items()}
+            ref, ref_k2, ref_k1, ref_s, _ = count_fold(
+                lambda: fold(model, **req, num_recycles=NUM_RECYCLES))
+            with use_mesh(mesh):
+                got, k2, k1, got_s, peak = count_fold(
+                    lambda: fold(model, **req, num_recycles=NUM_RECYCLES))
+            check_result(got, BUCKET)
+            gap = float((got.coords - ref.coords).abs().max())
+            out["fold"] = dict(coords_gap=gap, k1=k1, ref_k1=ref_k1,
+                               wall_ms=got_s * 1e3, ref_wall_ms=ref_s * 1e3,
+                               peak_gib=peak / 2**30)
+            log(f"mesh fold {LENGTHS[-1]} residues (bucket {BUCKET}, default "
+                f"model): coords gap {gap:.3e} to the fold without the "
+                f"mesh; K1 {k1} vs {ref_k1}; {got_s * 1e3:.1f} ms vs "
+                f"{ref_s * 1e3:.1f} ms")
+            if gap > 1e-3 or k1 != ref_k1 or (k2, ref_k2) != (0, 0):
+                raise AssertionError("the meshed fold differs")
+            del model
+
+            leaf = np.random.default_rng(SEED).standard_normal(
+                (1, BUCKET, 3)).astype(np.float32)
+            spec = ckpt.sharding_spec(NamedSharding(
+                mesh, PartitionSpec("data", "i")))
+            row = ckpt.RowCheckpoint(fold_key="mesh", model_tag="", age=0,
+                                     seq=np.zeros(BUCKET, np.int32),
+                                     leaves=[("dev", leaf, spec)])
+            key = ckpt.checkpoint_key("mesh", "", 0)
+            back = ckpt.decode_checkpoint(key,
+                                          ckpt.encode_checkpoint(key, row))
+            restored = back.restore_leaves()[0]
+            if not (is_dtensor(restored) and restored.device.type == "cuda"
+                    and np.array_equal(restored.full_tensor().cpu().numpy(),
+                                       leaf)):
+                raise AssertionError("the named checkpoint leaf did not "
+                                     "restore onto the mesh")
+            out["checkpoint"] = dict(spec=spec, bytes=leaf.nbytes)
+            log(f"mesh checkpoint: {spec} restored as a DTensor on the card, "
+                f"bit-equal")
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def ring_accumulate(kw, shards):
+    """Phase 3's K1 inputs (fp32) attended in `shards` key blocks with
+    `parallel.ring._block_attend`, the per-rank step of a ring of that
+    many ranks: the bias replayed over the fold and the key mask as -1e9,
+    as the ring adds them."""
+    from alphafold2_tpu_torch.parallel.ring import _block_attend
+    heads = kw["heads"]
+    b, n, d = kw["q"].shape
+    q, k, v = (kw[key].reshape(b // heads, heads, -1, d)
+               for key in ("q", "k", "v"))
+    bias = kw["bias"][None]                              # (1, h, n, n)
+    keys_ok = kw["k_mask"][:, None, None, :]
+    acc = q.new_zeros(q.shape)
+    row_max = q.new_full(q.shape[:-1], -float("inf"))
+    row_sum = q.new_zeros(q.shape[:-1])
+    size = n // shards
+    for s in range(shards):
+        cut = slice(s * size, (s + 1) * size)
+        blk = bias[..., cut] + torch.where(keys_ok[..., cut], 0.0, -1e9)
+        acc, row_max, row_sum = _block_attend(
+            q, k[:, :, cut], v[:, :, cut], blk, acc, row_max, row_sum)
+    return (acc / row_sum[..., None]).reshape(b, n, d)
+
+
+def phase_ring():
+    """The ring's arithmetic at full width: K1's 512 triangle shape of
+    phase 3 (B = 4096, N = 512, D = 64, 437 real residues, bias replayed
+    over 512) in fp32, split into RING_SHARDS key shards in one process
+    and accumulated with `_block_attend`, against K1 on the whole at
+    every valid query; one `_block_attend` step at S = 4 (a four-card
+    ring's per-rank work) timed beside K1 with CUDA events."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    from alphafold2_tpu_torch.parallel.ring import _block_attend
+    kw = attention_inputs("menu_k1_triangle_512", torch.float32,
+                          torch.device("cuda"), seed=7)
+    reset_launches()
+    whole = attn.fused_attention(**kw)
+    k1_launches, _ = read_launches()
+    valid = kw["q_mask"].repeat_interleave(kw["heads"], dim=0)
+    out = {"k1_launches": k1_launches}
+    for shards in RING_SHARDS:
+        got = ring_accumulate(kw, shards)
+        err = float((got - whole)[valid].abs().max())
+        out[f"max_abs_err_s{shards}"] = err
+        log(f"ring S={shards}: _block_attend accumulation vs K1 on the "
+            f"whole (fp32, valid queries): max abs err {err:.3e}")
+        if not err <= RING_ATOL:
+            raise AssertionError(f"the S={shards} ring differs from K1")
+        del got
+    heads = kw["heads"]
+    b, n, d = kw["q"].shape
+    size = n // 4
+    q, k, v = (kw[key].reshape(b // heads, heads, -1, d)
+               for key in ("q", "k", "v"))
+    blk = kw["bias"][None][..., :size] + torch.where(
+        kw["k_mask"][:, None, None, :size], 0.0, -1e9)
+    state = (q.new_zeros(q.shape), q.new_full(q.shape[:-1], -float("inf")),
+             q.new_zeros(q.shape[:-1]))
+    kb, vb = k[:, :, :size].contiguous(), v[:, :, :size].contiguous()
+    out["block_attend_ms_s4"] = cuda_ms(
+        lambda: _block_attend(q, kb, vb, blk, *state), iters=10)
+    out["k1_ms"] = cuda_ms(lambda: attn.fused_attention(**kw), iters=10)
+    log(f"ring: one _block_attend step at S=4 (B={b}, Nq={n}, Nk={size}, "
+        f"fp32) {out['block_attend_ms_s4']:.4f} ms (events); K1 on the "
+        f"whole {out['k1_ms']:.4f} ms")
+    return out
+
+
 def compare(cpu, gpu):
     """The largest difference over outputs, the largest CPU value and
     their ratio."""
@@ -3704,6 +3965,11 @@ def main(argv=None):
     menu_fold = run("menu-fold", phase_menu_fold)
     menu_variants = run("menu-variants", phase_menu_variants)
     menu_train = run("menu-train", phase_menu_train)
+    meshed = run("mesh", phase_mesh)
+    ringed = run("ring", phase_ring)
+    worst[torch.float32] = max(worst[torch.float32],
+                               *(ringed[f"max_abs_err_s{s}"]
+                                 for s in RING_SHARDS))
     log(f"phase seconds: {json.dumps(seconds)}")
     folds = {f["length"]: f for f in menu_fold["folds"]}
     menu_k1 = {f"{shape}_{key}": val
@@ -3770,6 +4036,10 @@ def main(argv=None):
         "menu_variants": menu_variants,
         "menu_train": menu_train,
         "menu_parity_card_vs_cpu": menu_parity,
+        "launches_mesh_train_step": meshed["train"]["k1_per_step"],
+        "launches_mesh_fold": meshed["fold"]["k1"],
+        "mesh": meshed,
+        "ring": ringed,
         **menu_k1,
         **timing,
     }, {

@@ -119,8 +119,10 @@ def test_train_end2end_matches_jax(tmp_path, monkeypatch):
 
 def test_train_end2end_flags_and_refusals(tmp_path):
     """BASELINE config 4's flags (se3, refinement, reversible) train
-    finite on the CPU at a tiny width; an empty --data directory and the
-    mesh raise; without --device it needs a card."""
+    finite on the CPU at a tiny width; an empty --data directory raises;
+    a one-device --mesh trains as no mesh, and a mesh larger than the
+    process group raises JAX's error; without --device it needs a
+    card."""
     cfg = write_config(tmp_path, TINY, dict(crop_len=10, msa_depth=2),
                        dict(num_steps=2, log_every=1))
     history = run_quiet(pt_train.main, [
@@ -134,8 +136,12 @@ def test_train_end2end_flags_and_refusals(tmp_path):
     with pytest.raises(FileNotFoundError, match="no .a3m files"):
         pt_train.main(["--config", cfg, "--data", str(tmp_path),
                        "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pt_train.main(["--mesh", "1,1,1"])
+    meshed = run_quiet(pt_train.main, ["--config", cfg, "--device", "cpu",
+                                       "--mesh", "1,1,1"])
+    assert len(meshed) == 2 and all(np.isfinite(h["loss"]) for h in meshed)
+    with pytest.raises(ValueError, match="#devices"):
+        pt_train.main(["--config", cfg, "--device", "cpu", "--mesh",
+                       "2,1,1"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run_quiet(pt_train.main, ["--config", cfg])

@@ -394,11 +394,12 @@ def test_bridge_refuses_strays_and_gaps(models):
     load_jax_params(pm, jax.tree.map(np.asarray, params))  # restore
 
 
-# options that raised until the refiners, the reversible trunk and the
-# README-era menu were ported (tests/test_torch_refiners.py,
-# tests/test_torch_reversible.py, tests/test_torch_menu.py): they build
-# now; only the ring trunk (queue 1, item 10) still raises
+# options that raised until the refiners, the reversible trunk, the
+# README-era menu and the mesh were ported (tests/test_torch_refiners.py,
+# tests/test_torch_reversible.py, tests/test_torch_menu.py,
+# tests/test_torch_parallel.py): every one builds now
 LIFTED = {"reversible": dict(reversible=True),
+          "ring_attention": dict(ring_attention=True),
           "structure_module_type": dict(structure_module_type="egnn"),
           "structure_module_refinement_iters": dict(
               structure_module_refinement_iters=2),
@@ -419,16 +420,19 @@ def test_unported_options_raise(case):
                  "structure_module_refinement_iters":
                      lambda: getattr(model, "coords_refiner", None),
                  "kernel": lambda: model.net.layers[0].msa_attn.row_attn,
-                 "use_conv": lambda: model.net.layers[0].pair_conv}[case]
+                 "use_conv": lambda: model.net.layers[0].pair_conv,
+                 "ring_attention": lambda: model.net.layers[
+                     0].attn.triangle_attention_outgoing.ring_axes}[case]
         assert built() is not None
         if case == "reversible":
             # the conv couplings join the reversible trunk too
             conv = pt_af2.Alphafold2(**dict(MODEL_KW, **LIFTED[case],
                                             use_conv=True), device="cpu")
             assert conv.net.rev.rev_layers[0].pair_conv is not None
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_af2.Alphafold2(**dict(MODEL_KW, **{case: True}), device="cpu")
+        if case == "ring_attention":
+            # the extra-MSA stack rings too, as in the JAX package
+            assert model.extra_msa_evoformer.layers[
+                0].msa_attn.row_attn.ring_axes == (None, "i")
 
 
 def test_structure_module_dim_head_is_accepted_and_unread():

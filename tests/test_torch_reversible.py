@@ -201,6 +201,10 @@ def test_the_trunk_options_reach_the_model_and_refusals_hold():
     with pytest.raises(ValueError, match="outer_mean_reference_scale"):
         pevo.Evoformer(D, 2, heads=HEADS, reversible=True,
                        outer_mean_reference_scale=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pevo.Evoformer(D, 2, heads=HEADS, reversible=True,
-                       ring_attention=True)
+    # ring_attention reaches the couplings' attentions (the ring itself
+    # runs under a mesh: tests/test_torch_parallel.py)
+    ringed = pevo.Evoformer(D, 2, heads=HEADS, reversible=True,
+                            ring_attention=True).rev.rev_layers[1]
+    assert ringed.pair_attn.triangle_attention_ingoing.ring_axes == \
+        ("i", "j")
+    assert ringed.msa_attn.row_attn.ring_axes == (None, "i")

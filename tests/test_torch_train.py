@@ -1049,10 +1049,14 @@ def test_eval_step_is_deterministic_and_leaves_the_state():
 
 
 def test_a_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pt_loop.shard_batch({"x": np.zeros(2)}, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """A mesh larger than the process group (one process here) raises
+    JAX's error; one device is no mesh, and the batch is placed as it is
+    (the meshed paths: tests/test_torch_parallel.py)."""
+    with pytest.raises(ValueError, match="#devices"):
         pt_config.MeshConfig(data=2).build()
+    assert pt_config.MeshConfig().build() is None
+    placed = pt_loop.shard_batch({"x": np.zeros(2)}, mesh=None)
+    assert torch.equal(placed["x"], torch.zeros(2, dtype=torch.float64))
 
 
 def test_jax_experiment_json_loads():
@@ -1093,12 +1097,12 @@ def test_train_distogram_entry_point(tmp_path):
                                      ).latest_step() == 3
     assert len((tmp_path / "log.jsonl").read_text().splitlines()) == 3
     # the on-disk datasets run (tests/test_torch_datasets.py); a
-    # directory without .a3m files raises as in the JAX package, and a
-    # mesh raises naming its ROADMAP item
+    # directory without .a3m files raises as in the JAX package, and so
+    # does a mesh larger than the process group (one process here)
     with pytest.raises(FileNotFoundError, match="no .a3m files"):
         train_distogram.main(["--config", str(cfg), "--device", "cpu",
                               "--data", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="#devices"):
         train_distogram.main(["--config", str(cfg), "--device", "cpu",
                               "--mesh", "1,2,1"])
 

@@ -5,7 +5,8 @@ of `alphafold2_tpu/config.py`).
 keep the JAX package's field names and defaults, so one experiment JSON
 builds either package's run. `ModelConfig.build()` returns the port's
 `Alphafold2`; `Experiment.build()` returns (model, optimizer factory,
-None): a mesh of more than one device is not ported and raises.
+mesh): the mesh is None for one device, else `MeshConfig.build()`'s
+(pipe, data, i, j) mesh over the ranks of the process group.
 """
 
 from __future__ import annotations

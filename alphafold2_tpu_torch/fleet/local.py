@@ -87,10 +87,13 @@ class InProcessFleet:
         (index -> MeshPolicy or None) for mesh-aware replicas. A
         FACTORY, not a shared policy: in-process replicas share one
         device pool, so each needs its own policy/allocator over its
-        own device subset (separate hosts in production own their
-        chips outright). The mesh section then rides each replica's
-        serve_stats()/health() through the fleet stats and /healthz
-        passthrough unchanged.
+        own device subset (`serve.device_share` of
+        `serve.visible_devices()`: replica i's chunk of the cards;
+        separate hosts in production own their cards outright); a
+        slice of several cards runs on its own rank processes
+        (`serve.SliceGroup`). The mesh section then rides each
+        replica's serve_stats()/health() through the fleet stats and
+        /healthz passthrough unchanged.
     kernel_policy: optional serve.KernelPolicy applied to EVERY
         replica's scheduler (per-bucket attention kernel: the long
         buckets on kernel K2; off when None, as in the JAX package's

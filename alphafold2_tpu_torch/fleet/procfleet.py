@@ -113,7 +113,7 @@ class ProcFleet:
                  retry: bool = True,
                  host: str = "127.0.0.1",
                  mesh_policy: str = "",
-                 mesh_hbm_gb: float = 16.0,
+                 mesh_hbm_gb: Optional[float] = None,
                  recycle: Optional[dict] = None,
                  feature_pool: Optional[dict] = None,
                  slo: str = "",
@@ -141,7 +141,8 @@ class ProcFleet:
             model=dict(model or {"dim": 32, "depth": 1,
                                  "msa_depth": 3}),
             mesh_policy=str(mesh_policy),
-            mesh_hbm_gb=float(mesh_hbm_gb),
+            mesh_hbm_gb=(None if mesh_hbm_gb is None
+                         else float(mesh_hbm_gb)),
             recycle=(None if recycle is None else dict(recycle)),
             feature_pool=(None if feature_pool is None
                           else dict(feature_pool)),
@@ -787,6 +788,7 @@ def replica_main(config: dict) -> int:
                                                  PeerCacheServer)
     from alphafold2_tpu_torch.fleet.registry import ReplicaRegistry
     from alphafold2_tpu_torch.fleet.router import ConsistentHashRouter
+    from alphafold2_tpu_torch.serve.meshpolicy import default_hbm_gb
 
     device = resolve_device(config.get("device"))
 
@@ -872,15 +874,24 @@ def replica_main(config: dict) -> int:
             express_deadline_s=(
                 float(feat_cfg["express_deadline_ms"]) / 1000.0
                 if feat_cfg.get("express_deadline_ms") else None))
-    # per-replica mesh policy from the fleet config: the port serves
-    # on one device, so the replica's pool is its own device (a wider
-    # shape clamps to it)
-    mesh_devices = [device] if config.get("mesh_policy") else None
+    # per-replica mesh policy from the fleet config: the config's
+    # mesh_device_share = [i, n] hands this replica the i-th 1/n chunk
+    # of the cards its process sees (the CPU for a CPU replica), so
+    # co-hosted replicas never double-book a card; shapes wider than
+    # the chunk clamp to it. The memory budget is each card's own
+    # unless the config names one
+    mesh_devices = None
+    if config.get("mesh_policy"):
+        share = config.get("mesh_device_share") or [0, 1]
+        mesh_devices = serve.device_share(
+            serve.visible_devices(device), share[0], share[1])
+    hbm_gb = config.get("mesh_hbm_gb")
     mesh_policy = serve.MeshPolicy.parse(
         config.get("mesh_policy", ""), model=model, params=None,
         buckets=policy, max_batch=int(config["max_batch"]),
         msa_depth=msa_depth,
-        hbm_gb=float(config.get("mesh_hbm_gb", 16.0)),
+        hbm_gb=(default_hbm_gb(device) if hbm_gb is None
+                else float(hbm_gb)),
         devices=mesh_devices,
         carry_recyclables=recycle_policy is not None,
         continuous=bool(recycle_policy is not None

@@ -92,7 +92,9 @@ class Alphafold2(nn.Module):
     """Hyperparameters and defaults match the JAX `Alphafold2`. The
     module is built on `device` (CUDA unless the caller names another;
     without a card `device=None` raises) with weights drawn from
-    `generator` (a fresh one seeded 0 when None)."""
+    `generator` (a fresh one seeded 0 when None); on the meta device
+    nothing is drawn. `init_kwargs` keeps the constructor's arguments
+    but the device and the generator."""
 
     def __init__(
         self,
@@ -142,7 +144,14 @@ class Alphafold2(nn.Module):
         generator: Optional[torch.Generator] = None,
         **trunk_options,
     ):
+        # the constructor's arguments but the device and the weights'
+        # generator: what a serving rank rebuilds the model from
+        init_kwargs = {k: v for k, v in locals().items()
+                       if k not in ("self", "device", "generator",
+                                    "trunk_options", "__class__")}
+        init_kwargs.update(trunk_options)
         super().__init__()
+        self.init_kwargs = init_kwargs
         device = resolve_device(device)
         refine = predict_coords and structure_module_refinement_iters > 0
         if refine and structure_module_refinement not in ("residue",
@@ -245,8 +254,11 @@ class Alphafold2(nn.Module):
             self.atom_refiner = AtomEGNNRefiner(
                 dim, iters=structure_module_refinement_iters)
 
-        init_weights(self, generator if generator is not None
-                     else torch.Generator().manual_seed(0))
+        if device.type != "meta":
+            # on the meta device nothing is drawn: the caller fills the
+            # weights (`to_empty`, then `load_state_dict`)
+            init_weights(self, generator if generator is not None
+                         else torch.Generator().manual_seed(0))
         self.to(device)
 
     @property

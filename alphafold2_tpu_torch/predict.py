@@ -23,9 +23,10 @@ entry point given none uploads one per call.
 
 `snapshot_step_state` / `restore_step_state` take a host copy of a
 step-loop carry and put it back byte-equal, on the device each leaf came
-from. `fold_and_write` folds a batch and writes one PDB per element,
-memoised in a `cache.FoldCache` whose keys equal the JAX package's, with
-one request-scoped `obs.Tracer` trace per call.
+from (or through the placement of a leaf held elsewhere).
+`fold_and_write` folds a batch and writes one PDB per element, memoised
+in a `cache.FoldCache` whose keys equal the JAX package's, with one
+request-scoped `obs.Tracer` trace per call.
 """
 
 from __future__ import annotations
@@ -278,14 +279,20 @@ def _live_device(device) -> torch.device:
 
 def snapshot_step_state(state):
     """Host copy of a step-loop carry: (treedef, entries), one entry per
-    leaf in `tree_flatten` order — ("dev", numpy copy, torch.device) for
-    a tensor, ("ref", leaf, None) for anything else (kept by reference).
-    Nothing in it refers to the model or an executor."""
+    leaf in `tree_flatten` order — ("dev", numpy copy, placement) for a
+    tensor, ("ref", leaf, None) for anything else (kept by reference).
+    A tensor's placement is its torch.device. A leaf held by other
+    processes (one with `fetch()` and `place`, as a slice group's
+    `serve.slices.RemoteTensor`) is fetched whole, and its placement is
+    its `place`, which puts the copy back. Nothing in it refers to the
+    model or an executor."""
     leaves, treedef = tree_flatten(state)
     snap = []
     for leaf in leaves:
         if isinstance(leaf, torch.Tensor):
             snap.append(("dev", _to_host(leaf), leaf.device))
+        elif hasattr(leaf, "fetch") and hasattr(leaf, "place"):
+            snap.append(("dev", _to_host(leaf.fetch()), leaf.place))
         else:
             snap.append(("ref", leaf, None))
     return treedef, snap
@@ -294,11 +301,13 @@ def snapshot_step_state(state):
 def restore_step_state(snapshot):
     """Put a `snapshot_step_state` copy back: each tensor leaf on the
     device it was taken from (where this process no longer has that
-    device, the default device: the card, or a raise), reference leaves
-    as they are. The restored carry is byte-equal to the snapshotted
-    one."""
+    device, the default device: the card, or a raise), a leaf whose
+    placement has `put(array)` through it, reference leaves as they
+    are. The restored carry is byte-equal to the snapshotted one."""
     treedef, snap = snapshot
-    leaves = [val if kind != "dev" else _to_device(val, _live_device(place))
+    leaves = [val if kind != "dev" else place.put(val)
+              if hasattr(place, "put") else
+              _to_device(val, _live_device(place))
               for kind, val, place in snap]
     return tree_unflatten(treedef, leaves)
 

@@ -9,12 +9,14 @@ The serving stack, bottom-up:
                 "process") with their own cache tier, then folded
 - bucketing:    BucketPolicy — ragged lengths onto a closed shape set
 - executor:     FoldExecutor — LRU cache of fold programs
+- slices:       SliceGroup — a multi-device slice as one rank process
+                per device, driven from the executor
 - scheduler:    Scheduler — dynamic batching, deadlines, backpressure,
                 result cache + in-flight coalescing, retry, bisection,
                 the scheduler-owned recycle loop
 - metrics:      ServeMetrics, KeyFrequencyLog
-- meshpolicy:   MeshPolicy/FoldMemoryModel/DeviceSliceAllocator, on one
-                device (multi-device slices are not ported yet)
+- meshpolicy:   MeshPolicy/FoldMemoryModel/DeviceSliceAllocator over
+                every visible card (`visible_devices`)
 - kernelpolicy: KernelPolicy — per-bucket attention kernel choice
                 (kernel K2 for the long buckets)
 - recycle:      RecyclePolicy — early exit, preemption, streaming,
@@ -71,7 +73,8 @@ from alphafold2_tpu_torch.ops.block_sparse import KernelSpec  # noqa: F401
 from alphafold2_tpu_torch.serve.kernelpolicy import KernelPolicy  # noqa: F401
 from alphafold2_tpu_torch.serve.meshpolicy import (  # noqa: F401
     AdmissionDecision, AdmissionPricer, DeviceSliceAllocator,
-    FoldMemoryModel, MeshPolicy, SliceLease)
+    FoldMemoryModel, MeshPolicy, SliceLease, device_share,
+    visible_devices)
 from alphafold2_tpu_torch.serve.metrics import (  # noqa: F401
     KeyFrequencyLog, ServeMetrics)
 from alphafold2_tpu_torch.serve.preemption import (  # noqa: F401
@@ -83,6 +86,8 @@ from alphafold2_tpu_torch.serve.request import (  # noqa: F401
 from alphafold2_tpu_torch.serve.resilience import (  # noqa: F401
     CircuitBreaker, Quarantine, RetryPolicy, TransientExecutorError,
     WatchdogTimeout)
+from alphafold2_tpu_torch.serve.slices import (  # noqa: F401
+    RemoteTensor, SliceGroup, SliceRankLost)
 from alphafold2_tpu_torch.serve.scheduler import (  # noqa: F401
     DrainingError, QueueFullError, Scheduler, SchedulerConfig)
 from alphafold2_tpu_torch.serve.cuda_errors import (  # noqa: F401

@@ -8,7 +8,9 @@ verdicts:
 
 - transient: worth retrying in place — the card ran out of memory for
   this attempt (`torch.cuda.OutOfMemoryError`, "CUDA out of memory",
-  `cudaErrorMemoryAllocation`), or a host connection was reset;
+  `cudaErrorMemoryAllocation`), a host connection was reset, or a rank
+  process of a multi-device slice was lost (the next attempt starts a
+  fresh group);
 - deterministic: retrying the same bytes reproduces it — an illegal or
   misaligned memory access, an unspecified launch failure, a
   device-side assert, an NCCL error, a kernel that refuses the shape,
@@ -16,6 +18,11 @@ verdicts:
   row-isolation path should run instead of the retry loop;
 - no opinion (`classify` returns None): the payload matches no known
   shape; the caller keeps its legacy default.
+
+An exception raised on a slice's rank (`serve.slices`) reaches the
+executor's process as the same exception, so its payload classifies as
+it would in process; one that cannot travel as itself comes as a
+`RankError` whose message keeps the original type name and text.
 
 The port's kernels report a failed launch as "... CUDA error N ..."
 (`ops/attention.py`, `ops/block_sparse.py`); such a payload is
@@ -79,10 +86,14 @@ CODES: Dict[int, Tuple[bool, str]] = {
     719: (False, "launch_failure"),           # ...LaunchFailure
 }
 
-# the JAX classifier's platform-free shapes, after the CUDA ones
+# the JAX classifier's platform-free shapes, after the CUDA ones, and
+# a slice group's lost rank (`serve.slices.SliceRankLost`: the executor
+# starts a fresh group on the next attempt)
 _TRANSIENT_SHAPES: Tuple[Tuple[str, str], ...] = (
     (r"connection reset", "connection_reset"),
     (r"socket closed", "connection_reset"),
+    (r"slice rank \d+ of \S+ exited", "slice_rank_lost"),
+    (r"slice group \S+ is closed", "slice_rank_lost"),
 )
 _DETERMINISTIC_SHAPES: Tuple[Tuple[str, str], ...] = (
     (r"invalid[_ ]argument", "invalid_argument"),

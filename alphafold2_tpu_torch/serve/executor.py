@@ -14,23 +14,32 @@ step program serves every recycle depth.
 
 The model holds its weights; the executor runs it eagerly on its own
 device, or, given a one-device slice (`devices=[d]`), on a copy made once
-per (device, model_tag). Every run synchronises the device before it
-returns, so a caller's latency measurement is honest. `stats()` exposes
-hits, misses (programs built) and evictions. `trace=` takes the span API
-of `obs.trace.NULL_TRACE`: `compile` when a key is built, `fold`,
-`recycle` or `admit` for the run, `shard` for a slice's placement.
+per (device, model_tag). A slice of several devices runs on a
+`serve.slices.SliceGroup`: one rank process per device under
+`make_mesh(1, i, j)` (the pair 2-D sharded, FastFold's DAP), started
+once per (slice, mesh shape, model_tag) and driven from here. Groups are
+keyed by the slice's device names, so a CPU pool that repeats one device
+gives slices of one shape one group, whose commands run one at a time.
+`mesh_shape` defaults to the slice's `meshpolicy.slice_face`.
+Every run synchronises the device before it returns, so a caller's
+latency measurement is honest. `stats()` exposes hits, misses (programs
+built) and evictions. `trace=` takes the span API of
+`obs.trace.NULL_TRACE`: `compile` when a key is built, `fold`,
+`recycle` or `admit` for the run (tagged with the mesh label on a
+slice), `shard` once per batch and slice for the inputs' placement.
 `faults` takes a chaos plan with `on_executor_run(batch, variant=,
-recycle=)` and `mutate_result(batch, result)` hooks.
+recycle=)` and `mutate_result(batch, result)` hooks; they run in this
+process, before the command goes to a slice's ranks and after the reply
+lands.
 
-Not ported yet (ROADMAP.md): multi-device slices (queue 1, step F2: a
-mesh in PyTorch is one process per card, and the scheduler's one
-process must drive those ranks) and CUDA-graph capture per key (queue
-2, item 8).
+Not ported yet (ROADMAP.md): CUDA-graph capture per key (queue 2,
+item 8).
 """
 
 from __future__ import annotations
 
 import copy
+import itertools
 import threading
 from collections import OrderedDict
 from typing import Iterable, Optional, Sequence, Tuple
@@ -44,6 +53,8 @@ from alphafold2_tpu_torch.predict import (FoldResult, FoldStepState, fold,
                                           fold_init, fold_init_rows,
                                           fold_step)
 from alphafold2_tpu_torch.serve.bucketing import msa_depth_of
+from alphafold2_tpu_torch.serve.meshpolicy import slice_face
+from alphafold2_tpu_torch.serve.slices import SliceGroup
 
 MeshShape = Tuple[int, int]
 # (bucket_len, batch_size, msa_depth, num_recycles, mesh_shape,
@@ -54,6 +65,9 @@ VARIANTS = ("fold", "init", "step", "init_rows")
 _SINGLE: MeshShape = (1, 1)
 _DENSE = "dense"
 _BATCH_INPUTS = ("seq", "mask", "msa", "msa_mask")
+# one id per placed batch: a slice group's ranks keep a batch's inputs
+# under it for the steps of a loop
+_batch_ids = itertools.count(1)
 
 
 def mesh_label(mesh_shape: MeshShape) -> str:
@@ -91,6 +105,32 @@ class Program:
         (recyclables,) = extra
         return fold_step(self.model, seq, recyclables, **kw)
 
+    def sync(self):
+        if self.model.device.type == "cuda":
+            torch.cuda.synchronize(self.model.device)
+
+
+class SliceProgram:
+    """One key's program on a slice group: the ranks build their own
+    `Program` for the key on its first run there."""
+
+    def __init__(self, key: tuple, variant: str, num_recycles: int,
+                 kernel: Optional[KernelSpec] = None):
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown executable variant {variant!r}")
+        self.key = key
+        self.variant = variant
+        self.num_recycles = int(num_recycles)
+        self.kernel = kernel
+
+    def run(self, group: SliceGroup, placed, extra):
+        batch_id, inputs = placed
+        coords, confidence, distogram, recyclables = group.run(
+            self.variant, self.num_recycles, self.key, self.kernel,
+            batch_id, inputs, extra)
+        kind = FoldResult if self.variant == "fold" else FoldStepState
+        return kind(coords, confidence, distogram, recyclables)
+
 
 class FoldExecutor:
     """LRU cache of fold programs, keyed by shape signature.
@@ -99,7 +139,7 @@ class FoldExecutor:
         weights, on the device the executor runs on.
     model_tag: weight identity baked into every ExecKey; reassigning it
         makes every earlier program unreachable and drops the model
-        copies placed under other tags.
+        copies and slice groups placed under other tags.
     faults: optional chaos plan (see module doc); None costs nothing.
     """
 
@@ -113,7 +153,10 @@ class FoldExecutor:
         self._cache: "OrderedDict[tuple, Program]" = OrderedDict()
         # (device, model_tag) -> the model copied onto that device
         self._placed: dict = {}
+        # (device names, mesh shape, model_tag) -> its SliceGroup
+        self._groups: dict = {}
         self._lock = threading.Lock()
+        self._group_lock = threading.Lock()
         self.model_tag = model_tag
         self.hits = 0
         self.misses = 0
@@ -125,18 +168,44 @@ class FoldExecutor:
 
     @model_tag.setter
     def model_tag(self, tag: str):
-        """Re-key every future ExecKey and drop the model copies placed
-        under any other tag now."""
+        """Re-key every future ExecKey, drop the model copies placed
+        under any other tag and close their slice groups now."""
         self._model_tag = tag
         with self._lock:
             for k in [k for k in self._placed if k[1] != tag]:
                 del self._placed[k]
+        with self._group_lock:
+            stale = [k for k in self._groups if k[2] != tag]
+            groups = [self._groups.pop(k) for k in stale]
+        for group in groups:
+            group.close()
 
     def rebuild(self) -> "FoldExecutor":
         """Fresh executor over the same model: empty cache, zeroed
-        counters."""
+        counters. This executor's slice groups are killed (a group that
+        served a hung call is not trusted); the new one starts its own."""
+        self.kill()
         return FoldExecutor(self.model, max_entries=self.max_entries,
                             faults=self.faults, model_tag=self.model_tag)
+
+    def groups(self) -> list:
+        with self._group_lock:
+            return [g for g in self._groups.values() if g.alive]
+
+    def close(self):
+        """Close every slice group (their ranks exit); a later run on a
+        slice starts a fresh group."""
+        with self._group_lock:
+            groups, self._groups = list(self._groups.values()), {}
+        for group in groups:
+            group.close()
+
+    def kill(self):
+        """SIGKILL every slice group's ranks."""
+        with self._group_lock:
+            groups, self._groups = list(self._groups.values()), {}
+        for group in groups:
+            group.kill()
 
     # -- keys ------------------------------------------------------------
 
@@ -170,7 +239,7 @@ class FoldExecutor:
 
     # -- cache -----------------------------------------------------------
 
-    def _lookup(self, cache_key: tuple) -> Optional[Program]:
+    def _lookup(self, cache_key: tuple):
         with self._lock:
             fn = self._cache.get(cache_key)
             if fn is not None:
@@ -179,11 +248,15 @@ class FoldExecutor:
             return fn
 
     def _compile(self, cache_key: tuple, model, variant: str,
-                 num_recycles: int, kernel=None) -> Program:
+                 num_recycles: int, kernel=None):
         """Build the key's program outside the lock (the plan's upload
         happens here) and insert it; the least recently used key goes
-        when the cache is full."""
-        program = Program(model, variant, num_recycles, kernel)
+        when the cache is full. `model` None builds a slice's program."""
+        if model is None:
+            program = SliceProgram(cache_key[:8], variant, num_recycles,
+                                   kernel)
+        else:
+            program = Program(model, variant, num_recycles, kernel)
         with self._lock:
             self.misses += 1
             existing = self._cache.get(cache_key)
@@ -199,21 +272,21 @@ class FoldExecutor:
     # -- device slices ---------------------------------------------------
 
     def _slice(self, devices, mesh_shape):
-        """(model on the slice's device, its cache-key element, mesh
-        shape) for a one-device slice; the model is copied once per
-        (device, model_tag)."""
+        """(model or SliceGroup, its cache-key element, mesh shape) of a
+        slice. A one-device slice runs in this process, on a copy of the
+        model made once per (device, model_tag); a larger one runs on
+        the slice's SliceGroup, started once per (device names, mesh
+        shape, model_tag)."""
         devices = [resolve_device(d) for d in devices]
-        mesh_shape = _SINGLE if mesh_shape is None \
-            else tuple(int(x) for x in mesh_shape)
-        if len(devices) != 1 or mesh_shape != _SINGLE:
-            raise NotImplementedError(
-                f"a slice of {len(devices)} devices (mesh "
-                f"{mesh_label(mesh_shape)}) is not ported to PyTorch yet "
-                f"(ROADMAP.md, queue 1, step F2: one process per card, "
-                f"driven from the scheduler)")
+        mesh_shape = slice_face(len(devices), devices) \
+            if mesh_shape is None else tuple(int(x) for x in mesh_shape)
+        dev_ids = tuple(str(d) for d in devices)
+        if len(devices) > 1 or mesh_shape != _SINGLE:
+            return self._group(devices, dev_ids, mesh_shape), dev_ids, \
+                mesh_shape
         dev = devices[0]
         if dev == self.model.device:
-            return self.model, (str(dev),), mesh_shape
+            return self.model, dev_ids, mesh_shape
         cache_k = (str(dev), self.model_tag)
         with self._lock:
             placed = self._placed.get(cache_k)
@@ -221,7 +294,26 @@ class FoldExecutor:
             placed = copy.deepcopy(self.model).to(dev)
             with self._lock:
                 placed = self._placed.setdefault(cache_k, placed)
-        return placed, (str(dev),), mesh_shape
+        return placed, dev_ids, mesh_shape
+
+    def _group(self, devices, dev_ids, mesh_shape) -> SliceGroup:
+        """The slice's group, spawned here when it has none (or a dead
+        one); the first command waits for its ranks to be ready."""
+        key = (dev_ids, mesh_shape, self.model_tag)
+        with self._group_lock:
+            group = self._groups.get(key)
+            if group is None or not group.alive:
+                group = self._groups[key] = SliceGroup(
+                    self.model, devices, mesh_shape, self.model_tag,
+                    max_entries=self.max_entries)
+            return group
+
+    def prestart(self, devices: Sequence,
+                 mesh_shape: Optional[MeshShape] = None):
+        """Start a slice's group without waiting for it, so the groups
+        of several slices start at once (a one-device slice has
+        none)."""
+        self._slice(devices, mesh_shape)
 
     # -- execution -------------------------------------------------------
 
@@ -233,7 +325,8 @@ class FoldExecutor:
         once the device is done. Spans: `compile` when the key is built,
         `fold` for the run (tagged with the kernel label), `shard` for a
         slice's placement. `kernel` (a KernelSpec, or None for dense) is
-        part of the key."""
+        part of the key. On a slice of several devices the result's
+        distogram and recyclables are `serve.slices.RemoteTensor`s."""
         return self._execute("fold", batch, num_recycles, (), trace,
                              devices, mesh_shape, "fold", {}, kernel)
 
@@ -284,22 +377,36 @@ class FoldExecutor:
         if kernel is not None:
             attrs = dict(attrs, kernel=kernel.label)
         inputs = tuple(batch[k] for k in _BATCH_INPUTS)
+        group = None
         if devices:
-            model, dev_ids, mesh_shape = self._slice(devices, mesh_shape)
+            target, dev_ids, mesh_shape = self._slice(devices, mesh_shape)
             label = mesh_label(mesh_shape)
             attrs = dict(attrs, mesh=label)
             key = self.key_for(batch, num_recycles, mesh_shape=mesh_shape,
                                variant=variant, kernel=kernel)
             cache_key = key + (dev_ids,)
+            if isinstance(target, SliceGroup):
+                group, model = target, None
+            else:
+                model = target
             # the batch's inputs are placed once per slice and kept on
-            # the batch dict: a step loop's iterations share them
-            place_key = ("_placed", dev_ids)
+            # the batch dict: a step loop's iterations share them (a
+            # slice group's ranks keep them under the batch's id)
+            place_key = ("_placed", dev_ids) if group is None \
+                else ("_placed_ranks", dev_ids)
             placed = batch.get(place_key)
             if placed is None:
-                with trace.span("shard", mesh=label, devices=1):
-                    placed = tuple(None if t is None else
-                                   torch.as_tensor(t, device=model.device)
-                                   for t in inputs)
+                with trace.span("shard", mesh=label, devices=len(dev_ids)):
+                    if group is None:
+                        placed = tuple(
+                            None if t is None else
+                            torch.as_tensor(t, device=model.device)
+                            for t in inputs)
+                    else:
+                        placed = (next(_batch_ids), tuple(
+                            None if t is None else
+                            torch.as_tensor(t).detach().cpu()
+                            for t in inputs))
                 batch[place_key] = placed
             inputs = placed
         else:
@@ -318,20 +425,24 @@ class FoldExecutor:
                             msa_depth=key[2], **tags):
                 fn = self._compile(cache_key, model, variant, key[3],
                                    kernel)
+        if group is not None:
+            def call():
+                return fn.run(group, inputs, tuple(extra_args))
+        else:
+            def call():
+                result = fn(*(inputs + tuple(extra_args)))
+                fn.sync()
+                return result
         with trace.span(span, bucket_len=key[0], **attrs):
-            return self._invoke(fn, inputs + tuple(extra_args), batch,
-                                variant=variant,
+            return self._invoke(call, batch, variant=variant,
                                 recycle=attrs.get("recycle"))
 
-    def _invoke(self, fn: Program, args, batch, variant: str = "fold",
-                recycle=None):
+    def _invoke(self, call, batch, variant: str = "fold", recycle=None):
         if self.faults is not None:
             # injected exceptions and latency fire before the device call
             self.faults.on_executor_run(batch, variant=variant,
                                         recycle=recycle)
-        result = fn(*args)
-        if fn.model.device.type == "cuda":
-            torch.cuda.synchronize(fn.model.device)
+        result = call()
         if self.faults is not None:
             result = self.faults.mutate_result(batch, result)
         return result
@@ -347,10 +458,14 @@ class FoldExecutor:
         msa_depth, recycles) or full ExecKeys. `step_mode` warms the
         init+step pair instead of the fold program, `continuous` also
         the init_rows program. `kernel` warms the keys of its own bucket
-        length under it (the others dense). Returns the number of fresh
-        builds; `timer` (with a `measure()` context) times each key."""
+        length under it (the others dense). With `devices`, a slice of
+        several devices starts its SliceGroup here. Returns the number
+        of fresh builds; `timer` (with a `measure()` context) times each
+        key."""
         if devices:
-            device = self._slice(devices, mesh_shape)[0].device
+            target = self._slice(devices, mesh_shape)[0]
+            device = torch.device("cpu") if isinstance(target, SliceGroup) \
+                else target.device
         else:
             device = self.model.device
         fresh = 0
@@ -401,9 +516,11 @@ class FoldExecutor:
 
     def stats(self) -> dict:
         with self._lock:
-            return {"hits": self.hits, "misses": self.misses,
-                    "evictions": self.evictions,
-                    "resident": len(self._cache),
-                    "max_entries": self.max_entries,
-                    "keys": [k[:-1] for k in self._cache.keys()],
-                    "placed_param_slices": len(self._placed)}
+            out = {"hits": self.hits, "misses": self.misses,
+                   "evictions": self.evictions,
+                   "resident": len(self._cache),
+                   "max_entries": self.max_entries,
+                   "keys": [k[:-1] for k in self._cache.keys()]}
+            placed = len(self._placed)
+        out["placed_param_slices"] = placed + len(self.groups())
+        return out

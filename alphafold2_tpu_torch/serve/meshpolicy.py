@@ -1,8 +1,8 @@
 """Per-bucket mesh policy: match each length bucket to a device slice
-(counterpart of `alphafold2_tpu/serve/meshpolicy.py`, on one device:
-parameter bytes and the dtype come from the model, the device pool from
-the caller or the default card, and the memory budget from the card's
-`total_memory` unless `hbm_gb` is given).
+(counterpart of `alphafold2_tpu/serve/meshpolicy.py`: parameter bytes
+and the dtype come from the model, the device pool from the caller or
+every visible card (`visible_devices`), and the memory budget from the
+card's `total_memory` unless `hbm_gb` is given).
 
 The serving insight (ParaFold: match each workload to the pool shape
 that fits it; FastFold DAP: shard the O(L^2) pair representation at
@@ -32,9 +32,9 @@ the scheduler holds one lease per in-flight batch.
 
 Everything here is policy + bookkeeping: nothing runs on a device, and
 a scheduler constructed with `mesh_policy=None` never touches it. A
-slice of more than one device is clamped to the pool as the JAX package
-clamps it on a one-device host; the executor raises on a multi-device
-slice (ROADMAP.md, queue 1, step F2).
+slice wider than the pool is clamped to it as the JAX package clamps it
+on a one-device host; the executor runs a multi-device slice on one
+rank process per device (`serve.slices`).
 """
 
 from __future__ import annotations
@@ -58,14 +58,77 @@ def factor_chips(n: int) -> MeshShape:
     return (i, n // i)
 
 
-def normalize_shape(shape: Union[int, Sequence[int]]) -> MeshShape:
-    """Accept an int chip count or an explicit (i, j) pair."""
+def slice_face(n: int, devices: Sequence[object] = ()) -> MeshShape:
+    """The (i, j) face of an n-device slice of `devices`. On cards the
+    rows stay whole, (1, n): cuBLAS picks an fp32 GEMM by its shape, so
+    a rank that projects a block of the residues' rows (i > 1) rounds
+    otherwise than one card, and recycling turns that rounding into
+    angstroms, while a 1 x n slice folds bit-equal to one card (PERF.md
+    §6). Elsewhere (a CPU pool) the JAX package's squarest face,
+    `factor_chips`. An explicit (i, j) is kept as given
+    (`normalize_shape`)."""
+    face = factor_chips(n)      # raises unless n is a power of two
+    return (1, n) if _on_cards(devices) else face
+
+
+def _on_cards(devices: Sequence[object]) -> bool:
+    import torch
+    try:
+        return bool(devices) and all(torch.device(d).type == "cuda"
+                                     for d in devices)
+    except (RuntimeError, TypeError):
+        return False
+
+
+def normalize_shape(shape: Union[int, Sequence[int]],
+                    devices: Sequence[object] = ()) -> MeshShape:
+    """Accept an int chip count (its `slice_face` over `devices`) or an
+    explicit (i, j) pair."""
     if isinstance(shape, int):
-        return factor_chips(shape)
+        return slice_face(shape, devices)
     i, j = (int(x) for x in shape)
     if i < 1 or j < 1:
         raise ValueError(f"mesh shape must be positive, got {(i, j)}")
     return (i, j)
+
+
+# the JAX package's per-device budget, kept only for a CPU pool, which
+# has no device memory to read; a pool of cards prices each card's own
+# `total_memory` (hbm_gb=None)
+CPU_HBM_GB = 16.0
+
+
+def visible_devices(device=None) -> list:
+    """A process's device pool: every visible card, or the CPU when
+    `device` is the CPU (a raise without a card otherwise, as entry
+    points raise)."""
+    import torch
+
+    from alphafold2_tpu_torch.device import resolve_device
+    if device is not None and torch.device(device).type == "cpu":
+        return [torch.device("cpu")]
+    resolve_device(None)
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
+
+
+def device_share(pool: Sequence[object], index: int,
+                 count: int) -> list:
+    """Replica `index`'s contiguous 1/`count` chunk of `pool` (the last
+    chunk when the pool has fewer), so co-hosted replicas never share a
+    card."""
+    pool = list(pool)
+    chunk = max(1, len(pool) // max(int(count), 1))
+    index = int(index)
+    return pool[index * chunk:(index + 1) * chunk] or pool[-chunk:]
+
+
+def default_hbm_gb(device) -> Optional[float]:
+    """The `hbm_gb` a pool on `device` is priced with when none is
+    given: None (the card's own memory) on a card, `CPU_HBM_GB` on the
+    CPU."""
+    import torch
+    return CPU_HBM_GB if torch.device(device).type == "cpu" else None
 
 
 def mesh_label(shape: MeshShape) -> str:
@@ -493,14 +556,15 @@ class DeviceSliceAllocator:
 class MeshPolicy:
     """bucket_len -> device-slice shape, plus the HBM admission model.
 
-    shapes: mapping of bucket edge -> slice (an int chip count or an
-        explicit (i, j) pair). Buckets absent from the map default to a
+    shapes: mapping of bucket edge -> slice (an int chip count, whose
+        face `slice_face` picks for the pool, or an explicit (i, j)
+        pair). Buckets absent from the map default to a
         single chip. Shapes larger than the device pool are CLAMPED to
         the largest power-of-two slice the pool holds (recorded in
         `clamped` and the snapshot) so a policy written for an 8-chip
         host degrades cleanly on a 1-device CI runner.
-    devices: the device pool to slice (default: the one card entry
-        points run on; a raise without one).
+    devices: the device pool to slice (default: every visible card,
+        `visible_devices()`; a raise without one).
     memory: optional FoldMemoryModel backing `admits()`; None admits
         everything (the guard is opt-in like everything else here).
     """
@@ -509,8 +573,7 @@ class MeshPolicy:
                  devices: Optional[Sequence[object]] = None,
                  memory: Optional[FoldMemoryModel] = None):
         if devices is None:
-            from alphafold2_tpu_torch.device import resolve_device
-            devices = [resolve_device(None)]
+            devices = visible_devices()
         self.devices = list(devices)
         n_dev = len(self.devices)
         cap = 1
@@ -519,10 +582,10 @@ class MeshPolicy:
         self.shapes: Dict[int, MeshShape] = {}
         self.clamped: Dict[int, str] = {}
         for bucket, s in shapes.items():
-            shape = normalize_shape(s)
+            shape = normalize_shape(s, self.devices)
             if chips_of(shape) > n_dev:
                 self.clamped[int(bucket)] = mesh_label(shape)
-                shape = factor_chips(cap)
+                shape = slice_face(cap, self.devices)
             self.shapes[int(bucket)] = shape
         self.memory = memory
 
@@ -548,9 +611,10 @@ class MeshPolicy:
         slice is assigned the bigger slice it actually needs instead
         of being auto-sized into a guaranteed "too_large".
         `continuous` does the same for the continuous batcher's
-        row-admission seam."""
+        row-admission seam. The pool defaults to `visible_devices` of
+        the model's device: every card, or the CPU."""
         if devices is None:
-            devices = [model.device]
+            devices = visible_devices(model.device)
         edges = getattr(buckets, "edges", buckets)
         memory = FoldMemoryModel.from_model(model, params, hbm_gb=hbm_gb,
                                             **memory_overrides)
@@ -559,6 +623,7 @@ class MeshPolicy:
         for edge in edges:
             n = 1
             while not memory.fits(edge, max_batch, msa_depth, n,
+                                  shape=slice_face(n, devices),
                                   carry_recyclables=carry_recyclables,
                                   continuous=continuous) \
                     and n * 2 <= cap:

@@ -83,9 +83,9 @@ a device-slice shape (1 chip for short buckets, a 2/4/8-chip
 pair-sharded mesh for long ones, chosen by an analytic HBM model), a
 DeviceSliceAllocator hands each formed batch a DISJOINT slice so short
 traffic no longer queues behind a flagship fold (batches on different
-slices execute concurrently on a small pool of dispatch threads; the
-port's executor runs one-device slices and raises on a multi-device
-one, since meshes are not ported yet), and submits whose analytic
+slices execute concurrently on a small pool of dispatch threads; a
+multi-device slice runs on one rank process per card, which warm-up
+starts and stop() closes), and submits whose analytic
 footprint exceeds even the largest configured slice resolve status "too_large"
 (`serve_too_large_total`) instead of dying in a CUDA OOM mid-batch.
 `serve_stats()["mesh"]` reports the policy, per-shape fold counts, and
@@ -850,6 +850,10 @@ class Scheduler:
             # so this is a fast thread teardown; start() re-creates it
             self._mesh_pool.shutdown(wait=True)
             self._mesh_pool = None
+            # the slice groups' ranks exit; a later run starts them anew
+            close = getattr(self.executor, "close", None)
+            if close is not None:
+                close()
 
     def drain(self, timeout_s: float = 30.0,
               grace_s: Optional[float] = None) -> bool:
@@ -1048,14 +1052,21 @@ class Scheduler:
             return sum(self.executor.warmup(
                 [key], step_mode=step_mode, continuous=continuous,
                 kernel=self._kernel_spec_for(key[0])) for key in keys)
+        # the guard rejects a bucket that does not fit at submit;
+        # compiling it would be the OOM it prevents
+        keys = [key for key in keys if self.mesh_policy.admits(
+            key[0], key[1], key[2], carry_recyclables=step_mode,
+            continuous=continuous)]
+        prestart = getattr(self.executor, "prestart", None)
+        if prestart is not None:
+            # every slice group starts now, side by side; each bucket's
+            # warm-up below waits only for its own
+            for key in keys:
+                shape = self.mesh_policy.shape_for(key[0])
+                for devices in self._allocator.slices(shape):
+                    prestart(devices, shape)
         fresh = 0
         for key in keys:
-            if not self.mesh_policy.admits(
-                    key[0], key[1], key[2],
-                    carry_recyclables=step_mode,
-                    continuous=continuous):
-                continue     # the guard rejects this bucket at submit;
-                #              compiling it would be the OOM we prevent
             shape = self.mesh_policy.shape_for(key[0])
             k_kw = {} if self.kernel_policy is None else \
                 {"kernel": self._kernel_spec_for(key[0])}
@@ -4318,7 +4329,10 @@ class Scheduler:
                 continue
             try:
                 if leaves is None:
-                    leaves, treedef = tree_flatten(state)
+                    # a slice group's carry comes to the host; the next
+                    # step sends it back to the ranks
+                    from alphafold2_tpu_torch.serve.slices import to_local
+                    leaves, treedef = tree_flatten(to_local(state))
                 # each host leaf goes back onto the carry's device
                 device = next(x.device for x in leaves
                               if isinstance(x, torch.Tensor))

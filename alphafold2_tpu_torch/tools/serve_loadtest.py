@@ -191,12 +191,14 @@ def parse_args(argv=None):
                          "HBM model (--mesh-hbm-gb), or an explicit "
                          "'BUCKET=CHIPS,...' map e.g. '32=1,64=4'; "
                          "empty = single-chip (today's behavior). The "
-                         "port serves on one device: a wider slice "
-                         "clamps to it")
-    ap.add_argument("--mesh-hbm-gb", type=float, default=16.0,
-                    help="per-device HBM budget the 'auto' mesh policy "
-                         "and the too-large admission guard price "
-                         "against")
+                         "pool is every visible card (a wider slice "
+                         "clamps to it); a multi-card slice runs one "
+                         "rank process per card")
+    ap.add_argument("--mesh-hbm-gb", type=float, default=None,
+                    help="per-device memory budget the 'auto' mesh "
+                         "policy and the too-large admission guard price "
+                         "against (default: each card's own memory; "
+                         "16 GB for a CPU pool)")
     ap.add_argument("--recycle-sched", action="store_true",
                     help="iteration-level scheduling "
                          "(serve.RecyclePolicy): the scheduler owns "
@@ -513,15 +515,22 @@ def _build_mesh_policy(args, model, policy, devices=None):
     `MeshPolicy.parse` every --mesh-policy surface uses (this CLI,
     ProcFleet configs, replica_main). 'auto' derives per-bucket slices
     analytically; 'BUCKET=CHIPS,...' pins them. Shapes wider than the
-    device pool clamp cleanly to it; the pool is the served model's
-    one device unless `devices` names another (per-replica pinning in
-    fleet mode)."""
+    device pool clamp cleanly to it; the pool is every visible card
+    (the CPU for a model there) unless `devices` names another
+    (per-replica pinning in fleet mode). The memory budget is each
+    card's own unless --mesh-hbm-gb names one."""
     from alphafold2_tpu_torch.serve import MeshPolicy
+    from alphafold2_tpu_torch.serve.meshpolicy import (default_hbm_gb,
+                                                       visible_devices)
 
+    hbm_gb = args.mesh_hbm_gb
+    if hbm_gb is None:
+        hbm_gb = default_hbm_gb(model.device)
     return MeshPolicy.parse(
         args.mesh_policy, model=model, buckets=policy,
         max_batch=args.max_batch, msa_depth=args.msa_depth,
-        hbm_gb=args.mesh_hbm_gb, devices=devices or [model.device],
+        hbm_gb=hbm_gb,
+        devices=devices or visible_devices(model.device),
         # auto-sized slices must price what will actually run: the
         # step loop's carried Recyclables under --recycle-sched, plus
         # the row-admission seam under --continuous
@@ -1814,13 +1823,19 @@ def _run_fleet(args) -> int:
     cache_kwargs = {}
     if args.cache_dir:
         cache_kwargs["disk_dir"] = args.cache_dir
-    # --mesh-policy in fleet mode: each in-process replica would pin
-    # its own chunk of the device pool; the port's pool is the model's
-    # one device, which every replica shares
+    # --mesh-policy in fleet mode: each in-process replica pins its own
+    # contiguous chunk of the visible cards, so concurrent replicas
+    # never fight over a card
     mesh_policy_factory = None
     if args.mesh_policy:
+        from alphafold2_tpu_torch.serve.meshpolicy import (device_share,
+                                                           visible_devices)
+        devices = visible_devices(model.device)
+
         def mesh_policy_factory(i):
-            return _build_mesh_policy(args, model, policy)
+            return _build_mesh_policy(
+                args, model, policy,
+                devices=device_share(devices, i, args.replicas))
 
     fl = fleet.InProcessFleet(
         lambda: serve.FoldExecutor(model,

@@ -192,7 +192,10 @@
 #   7. multi-chip mesh serving (--mesh-policy, serve.MeshPolicy): a
 #      mixed short+long workload where the long bucket asks for a
 #      4-chip pair-sharded slice and short folds stay single-chip. The
-#      port serves on one device, so the slice clamps to it. FAILS
+#      pool is every visible card: with four or more, the long bucket
+#      runs on a 1x4 slice of four rank processes, one per card (a
+#      chip count keeps the rows whole on cards; with fewer it clamps
+#      to the pool, and on one card or the CPU to one device). FAILS
 #      unless every request resolves ok, at least one sharded-bucket
 #      batch actually executed on a >1-chip mesh (serve_loadtest
 #      --smoke enforces it from serve_stats()["mesh"]["folds"]; the
@@ -448,8 +451,9 @@ timeout -k 10 120 \
     --check --prom serve_smoke_procs.prom
 fi
 
-# phase 7: mesh serving — 8 virtual devices, short bucket single-chip,
-# long bucket on a 2x2 pair-sharded slice; serve_loadtest --smoke fails
+# phase 7: mesh serving — every visible card, short bucket on one card,
+# long bucket on a 1x4 pair-sharded slice (one rank process per card,
+# on a machine with four cards); serve_loadtest --smoke fails
 # unless sharded batches actually executed on the multi-chip mesh (or
 # skips that assertion cleanly when only 1 device is visible), then
 # obs_report --check proves the new shard spans (and mesh-tagged fold

@@ -242,7 +242,28 @@ Phases, each of which fails the run (nonzero exit, no result line):
    `parallel.ring._block_attend`, against K1 on the whole at every valid
    query (within 1e-4); one `_block_attend` step at S = 4 timed beside
    K1 (CUDA events). A multi-card mesh needs one process per card
-   (`torchrun`); one card runs none.
+   (`torchrun`); one card runs none;
+24. slice: the serving executor's rank processes. On one card: a
+   one-rank `serve.SliceGroup` (NCCL over a FileStore, 1 x 1 mesh, the
+   executor's one-card slice sent to it by `one_rank_executor`) folds
+   131 residues in the 256 bucket (default model, 3 recycles) within
+   1e-3 A of the in-process executor with equal K1 launches (counted on
+   the rank: 96); a step loop of init and 3 steps on the group, then
+   init and 2 steps, a snapshot, the group killed, a fresh group
+   started by the restore's next step, and the last step byte-equal to
+   the unbroken loop. With two or more cards (else one line says why
+   not): the fp32 and bf16 default model at the 512 bucket (437
+   residues, the default KernelPolicy's K2 spec) on 1 x 2 and, with
+   four, 2 x 2 and 1 x 4 slices against one card (fp32: the slices
+   that keep the rows whole within 1e-3 A; 2 x 2, which shards the
+   rows, within 1e-2 A at the first pass, its fold's gap printed; the
+   bf16 gaps printed), beside the one-card fold with one projection
+   nudged by an ulp (the gap rounding alone makes), and a `Scheduler`
+   with MeshPolicy({256: 1, 512: 4}) and a RecyclePolicy over the fp32
+   default model serving the scheduler phase's six lengths, each
+   response within 1e-3 A of a one-card scheduler's; K1 and K2
+   launches per rank, walls, start-up seconds, peak memory per rank
+   and the replies' bytes and transfer time.
 
 Each phase prints its seconds.
 
@@ -3845,6 +3866,379 @@ def phase_ring():
     return out
 
 
+# the slice phase: the 256 bucket's 131 residues through a one-rank
+# group on the card; with more cards, the 512 bucket's 437 residues on
+# slices of 2 and 4 cards. Tolerance: JAX's for a meshed fold
+# (tests/test_serve_mesh.py), 1e-3 A, where each rank keeps whole rows
+# (one rank, 1 x j). A slice that shards the rows (i > 1) hands cuBLAS
+# blocks of another shape, whose fp32 sums round otherwise (the first
+# pass 1.4e-3-2.3e-3 A off on four cards), and recycling's distance
+# buckets turn that into whole angstroms: its first pass is held within
+# 1e-2 A, and its fold's gap is printed beside the gap that a one-ulp
+# nudge of one projection makes on one card (`nudged_fold`)
+SLICE_ATOL = 1e-3
+SLICE_ROWS_ATOL = 1e-2
+SLICE_SPARSE_LENGTH = SPARSE_LENGTHS[1]
+SLICE_REPEATS = 2
+
+
+def slice_batch(length, bucket, seed):
+    from alphafold2_tpu_torch import serve
+    (req,) = serve_requests((length,), seed)
+    batch, _ = serve.BucketPolicy((bucket,)).assemble(
+        [req], bucket, 1, msa_depth=MSA_ROWS, device="cuda")
+    return batch, length
+
+
+def coords_gap(got, ref, length):
+    """Largest coordinate difference (A) over the real residues."""
+    return float((got.coords.float().cpu()[:, :length]
+                  - ref.coords.float().cpu()[:, :length]).abs().max())
+
+
+def slice_step_loop(ex, batch, devices, steps, stop_after=None):
+    """init and `steps` steps; with `stop_after`, the state after that
+    many steps instead."""
+    state = ex.run_init(batch, devices=devices)
+    for r in range(steps if stop_after is None else stop_after):
+        state = ex.run_step(batch, state, r, devices=devices)
+    return state
+
+
+def one_rank_executor(model):
+    """A FoldExecutor whose one-card slice runs on a one-rank group (a
+    process of its own under a 1 x 1 mesh) instead of in this process,
+    so the check holds the rank path against the in-process one."""
+    from alphafold2_tpu_torch.serve import FoldExecutor
+    ex = FoldExecutor(model)
+
+    def on_group(devices, mesh_shape):
+        devices = [torch.device(d) for d in devices]
+        ids = tuple(str(d) for d in devices)
+        return ex._group(devices, ids, (1, 1)), ids, (1, 1)
+
+    ex._slice = on_group
+    return ex
+
+
+def slice_one_card(model):
+    """Part one of the slice phase (module doc, phase 24)."""
+    from alphafold2_tpu_torch.predict import (restore_step_state,
+                                              snapshot_step_state)
+    from alphafold2_tpu_torch.serve import FoldExecutor
+    from alphafold2_tpu_torch.serve.slices import to_local
+    card = [torch.device("cuda", 0)]
+    batch, n = slice_batch(LENGTHS[-1], BUCKET, SEED + 10)
+    ex = FoldExecutor(model)
+    gx = one_rank_executor(model)
+    gx.prestart(card)
+    (group,) = gx.groups()
+    # the in-process reference while the rank starts
+    ex.run(batch, NUM_RECYCLES)
+    ref, ref_k2, ref_k1, ref_s, _ = count_fold(
+        lambda: ex.run(batch, NUM_RECYCLES))
+    group.wait_ready()
+    startup = [group.startup_s]
+    gx.run(batch, NUM_RECYCLES, devices=card)
+    group.rank_stats(reset=True)
+    t0 = time.perf_counter()
+    got = gx.run(batch, NUM_RECYCLES, devices=card)
+    got_s = time.perf_counter() - t0
+    (rank,) = group.rank_stats()
+    gap = coords_gap(got, ref, n)
+    dist = np.asarray(got.distogram)
+    if not np.isfinite(dist).all() or dist.shape[:3] != (1, BUCKET, BUCKET):
+        raise AssertionError(f"bad distogram from the rank {dist.shape}")
+    out = {"coords_gap": gap, "k1_rank": rank["k1"], "k2_rank": rank["k2"],
+           "k1_in_process": ref_k1, "wall_ms": got_s * 1e3,
+           "in_process_wall_ms": ref_s * 1e3,
+           "reply_bytes": group.last_reply_bytes,
+           "reply_transfer_ms": group.last_transfer_s * 1e3,
+           "rank_fold_ms": group.last_rank_s * 1e3,
+           "rank_startup": group.rank_startup,
+           "peak_gib_rank": rank["peak_bytes"] / 2**30}
+    log(f"slice one card: one-rank group fold {n} residues (bucket "
+        f"{BUCKET}): coords gap {gap:.3e} A to the in-process executor; K1 "
+        f"{rank['k1']} on the rank vs {ref_k1} in process (K2 "
+        f"{rank['k2']} vs {ref_k2}); wall {got_s * 1e3:.1f} ms vs "
+        f"{ref_s * 1e3:.1f} ms in process (the rank's own fold "
+        f"{group.last_rank_s * 1e3:.1f} ms); reply {group.last_reply_bytes}"
+        f" B in {group.last_transfer_s * 1e3:.2f} ms; group start-up "
+        f"{group.startup_s:.1f} s ({group.rank_startup})")
+    if not gap <= SLICE_ATOL or rank["k1"] != ref_k1 or rank["k1"] <= 0 \
+            or (rank["k2"], ref_k2) != (0, 0):
+        raise AssertionError("the one-rank group's fold differs")
+
+    unbroken = to_local(slice_step_loop(gx, batch, card, NUM_RECYCLES))
+    local = slice_step_loop(ex, batch, None, NUM_RECYCLES)
+    state = slice_step_loop(gx, batch, card, NUM_RECYCLES,
+                            stop_after=NUM_RECYCLES - 1)
+    snap = snapshot_step_state(state)
+    group.kill()
+    restored = restore_step_state(snap)
+    t0 = time.perf_counter()
+    final = gx.run_step(batch, restored, NUM_RECYCLES - 1, devices=card)
+    restart_s = time.perf_counter() - t0
+    (fresh,) = gx.groups()
+    startup.append(fresh.startup_s)
+    final = to_local(final)
+    same = all(torch.equal(a, b) for a, b in (
+        (final.coords, unbroken.coords),
+        (final.confidence, unbroken.confidence),
+        (final.distogram, unbroken.distogram),
+        (final.recyclables.pairwise_repr,
+         unbroken.recyclables.pairwise_repr)))
+    loop_gap = coords_gap(final, local, n)
+    out.update(step_loop_byte_equal=same, step_loop_gap_in_process=loop_gap,
+               restart_step_s=restart_s, startup_s=startup)
+    log(f"slice one card: step loop (init + {NUM_RECYCLES} steps) "
+        f"snapshotted after {NUM_RECYCLES - 1} steps, group killed, "
+        f"restored, last step on a fresh group ({restart_s:.1f} s with its "
+        f"start-up): byte-equal to the unbroken loop: {same}; coords gap "
+        f"{loop_gap:.3e} A to the in-process loop; start-up seconds "
+        f"{[round(x, 2) for x in startup]}")
+    gx.close()
+    if not same or not loop_gap <= SLICE_ATOL:
+        raise AssertionError("the restored step loop differs")
+    return out
+
+
+def nudged_fold(ex, batch, recycles, spec):
+    """A fold in process with the first layer's MSA column attention's
+    query projection moved by one ulp at every element (its last bit
+    flipped): rounding of the size a GEMM of another shape gives."""
+    to_q = ex.model.get_submodule("net.layers.0.msa_attn.col_attn.attn.to_q")
+
+    def nudge(module, args, out):
+        bits = torch.int32 if out.dtype == torch.float32 else torch.int16
+        return (out.view(bits) ^ 1).view(out.dtype)
+
+    handle = to_q.register_forward_hook(nudge)
+    try:
+        return ex.run(batch, recycles, kernel=spec)
+    finally:
+        handle.remove()
+
+
+def slice_executor_folds(cards):
+    """The fp32 and bf16 default model at the 512 bucket through the
+    executor: one card in process, then each multi-card slice (its
+    group started beside the reference); on the one card, the same fold
+    with one projection nudged by an ulp (`nudged_fold`), the witness
+    of what rounding alone moves. Returns, per dtype and slice, the gap,
+    walls and per-rank launches and peak memory."""
+    from alphafold2_tpu_torch import ModelConfig, serve
+    shapes = [(1, 2)] + ([(2, 2), (1, 4)] if len(cards) >= 4 else [])
+    edges = serve.default_policy().edges
+    out = {}
+    for bf16 in (False, True):
+        name = "bf16" if bf16 else "fp32"
+        cfg = ModelConfig(predict_coords=True, bfloat16=bf16)
+        model = cfg.build(device="cuda",
+                          generator=torch.Generator().manual_seed(SEED))
+        perturb(model, SEED + 1)
+        spec = serve.KernelPolicy.from_model_config(cfg, edges).spec_for(
+            SPARSE_BUCKET)
+        batch, n = slice_batch(SLICE_SPARSE_LENGTH, SPARSE_BUCKET,
+                               SEED + 11)
+        ex = serve.FoldExecutor(model)
+        for shape in shapes:
+            ex.prestart(cards[:shape[0] * shape[1]], shape)
+        ex.run(batch, NUM_RECYCLES, kernel=spec)
+        walls = []
+        for _ in range(SLICE_REPEATS):
+            ref, k2, k1, sec, peak = count_fold(
+                lambda: ex.run(batch, NUM_RECYCLES, kernel=spec))
+            walls.append(sec * 1e3)
+        # the slices' ranks share these cards
+        torch.cuda.empty_cache()
+        row = {"one_card": {"wall_ms": walls, "k1": k1, "k2": k2,
+                            "peak_gib": peak / 2**30}}
+        first = ex.run(batch, 0, kernel=spec)
+        row["one_ulp_witness"] = {
+            "first_pass_gap": coords_gap(nudged_fold(ex, batch, 0, spec),
+                                         first, n),
+            "coords_gap": coords_gap(nudged_fold(ex, batch, NUM_RECYCLES,
+                                                 spec), ref, n),
+            "rerun_gap": coords_gap(ex.run(batch, NUM_RECYCLES, kernel=spec),
+                                    ref, n)}
+        log(f"slice {name} one card, the first layer's MSA column "
+            f"attention's to_q nudged by one ulp: coords gap "
+            f"{row['one_ulp_witness']['coords_gap']:.3e} A after "
+            f"{NUM_RECYCLES} recycles (first pass "
+            f"{row['one_ulp_witness']['first_pass_gap']:.3e}); the fold "
+            f"rerun unnudged {row['one_ulp_witness']['rerun_gap']:.3e} A")
+        for shape in shapes:
+            devs = cards[:shape[0] * shape[1]]
+            t0 = time.perf_counter()
+            ex.run(batch, NUM_RECYCLES, devices=devs, mesh_shape=shape,
+                   kernel=spec)
+            first_s = time.perf_counter() - t0
+            pass_gap = coords_gap(ex.run(batch, 0, devices=devs,
+                                         mesh_shape=shape, kernel=spec),
+                                  first, n)
+            group = next(g for g in ex.groups() if g.mesh_shape == shape)
+            group.rank_stats(reset=True)
+            walls = []
+            for _ in range(SLICE_REPEATS):
+                t0 = time.perf_counter()
+                got = ex.run(batch, NUM_RECYCLES, devices=devs,
+                             mesh_shape=shape, kernel=spec)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            ranks = group.rank_stats()
+            if not torch.isfinite(got.coords).all():
+                raise AssertionError(f"{name} {shape}: non-finite coords")
+            gap = coords_gap(got, ref, n)
+            label = f"{shape[0]}x{shape[1]}"
+            row[label] = {
+                "coords_gap": gap, "first_pass_gap": pass_gap,
+                "wall_ms": walls,
+                "first_run_s": first_s, "startup_s": group.startup_s,
+                "rank_startup": group.rank_startup,
+                "k1_per_rank": [r["k1"] // SLICE_REPEATS for r in ranks],
+                "k2_per_rank": [r["k2"] // SLICE_REPEATS for r in ranks],
+                "peak_gib_per_rank": [r["peak_bytes"] / 2**30
+                                      for r in ranks],
+                "reply_bytes": group.last_reply_bytes,
+                "reply_transfer_ms": group.last_transfer_s * 1e3,
+                "rank_fold_ms": group.last_rank_s * 1e3}
+            log(f"slice {name} fold {n} residues (bucket {SPARSE_BUCKET}, "
+                f"{getattr(spec, 'label', 'dense')}) on {label}: coords "
+                f"gap {gap:.3e} A to one card (first pass {pass_gap:.3e}); "
+                f"wall {[round(w, 1) for w in walls]} ms vs "
+                f"{[round(w, 1) for w in row['one_card']['wall_ms']]} ms "
+                f"on one card (first run {first_s:.1f} s, start-up "
+                f"{group.startup_s:.1f} s); per rank K1 "
+                f"{row[label]['k1_per_rank']} K2 "
+                f"{row[label]['k2_per_rank']} (one card K1 {k1} K2 {k2}); "
+                f"peak GiB per rank "
+                f"{[round(x, 2) for x in row[label]['peak_gib_per_rank']]}"
+                f"; reply {group.last_reply_bytes} B in "
+                f"{group.last_transfer_s * 1e3:.2f} ms")
+            if any(r["k1"] <= 0 or r["k2"] <= 0 for r in ranks):
+                raise AssertionError(f"{label}: a rank launched no K1 or K2")
+            if not bf16 and not (gap <= SLICE_ATOL if shape[0] == 1
+                                 else pass_gap <= SLICE_ROWS_ATOL):
+                raise AssertionError(f"fp32 fold on {label} differs from "
+                                     f"one card by {gap} A (first pass "
+                                     f"{pass_gap} A)")
+        out[name] = row
+        ex.close()
+        del ex, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def slice_scheduler(cards):
+    """Two Schedulers over the fp32 default model with a RecyclePolicy
+    and the default KernelPolicy: one card, and MeshPolicy({256: 1,
+    512: 4}) over the cards (a 1 x 4 slice on four cards, the face a
+    pool of cards gives four; 1 x 2 on two or three); the scheduler
+    phase's six lengths from threads, one request a batch; every
+    response of the sliced one within 1e-3 A of the one-card one's."""
+    import threading
+
+    from alphafold2_tpu_torch import ModelConfig, serve
+    chips = 4 if len(cards) >= 4 else 2
+    cfg = ModelConfig(predict_coords=True, bfloat16=False)
+    model = cfg.build(device="cuda",
+                      generator=torch.Generator().manual_seed(SEED))
+    perturb(model, SEED + 1)
+    edges = serve.default_policy().edges
+    reqs = serve_requests(SCHED_LENGTHS, SEED + 7)
+
+    def serve_all(mesh_policy):
+        ex = serve.FoldExecutor(model)
+        sched = serve.Scheduler(
+            ex, serve.BucketPolicy(edges),
+            serve.SchedulerConfig(max_batch_size=1, msa_depth=MSA_ROWS,
+                                  num_recycles=NUM_RECYCLES),
+            model_tag="chip_smoke-slice",
+            registry=serve.MetricsRegistry(),
+            metrics=serve.ServeMetrics(registry=serve.MetricsRegistry()),
+            recycle_policy=serve.RecyclePolicy(),
+            kernel_policy=serve.KernelPolicy.from_model_config(cfg, edges),
+            mesh_policy=mesh_policy)
+        t0 = time.perf_counter()
+        sched.warmup()
+        warm_s = time.perf_counter() - t0
+        groups = ex.groups()
+        for g in groups:
+            g.rank_stats(reset=True)
+        reset_launches()
+        tickets = {}
+        with sched:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=lambda r=r: tickets.__setitem__(
+                r.length, sched.submit(r))) for r in reqs]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            resps = {n: t.result(timeout=900) for n, t in tickets.items()}
+            traffic_s = time.perf_counter() - t0
+            ranks = [g.rank_stats() for g in groups]
+        k1, k2 = read_launches()
+        stats = sched.serve_stats()
+        bad = [(n, r.status, r.error) for n, r in resps.items() if not r.ok]
+        if bad:
+            raise AssertionError(f"slice scheduler responses not ok: {bad}")
+        return resps, {"warmup_s": warm_s, "traffic_s": traffic_s,
+                       "k1_parent": k1, "k2_parent": k2,
+                       "ranks": [[{k: r[k] for k in ("k1", "k2")} | {
+                           "peak_gib": r["peak_bytes"] / 2**30}
+                           for r in g] for g in ranks],
+                       "groups": [g.stats() for g in groups],
+                       "mesh": stats.get("mesh"),
+                       "latency_ms": {n: r.latency_s * 1e3
+                                      for n, r in resps.items()}}
+
+    ref, ref_info = serve_all(None)
+    policy = serve.MeshPolicy({BUCKET: 1, SPARSE_BUCKET: chips},
+                              devices=cards)
+    got, info = serve_all(policy)
+    gaps = {n: float(np.abs(got[n].coords - ref[n].coords).max())
+            for n in ref}
+    info.update(coords_gap=gaps, one_card=ref_info)
+    log(f"slice scheduler: MeshPolicy {policy.snapshot()['policy']} over "
+        f"{len(cards)} cards, lengths {list(SCHED_LENGTHS)}, RecyclePolicy "
+        f"({NUM_RECYCLES} steps): coords gap to the one-card scheduler "
+        f"{ {n: f'{g:.2e}' for n, g in gaps.items()} } A; latency (ms) "
+        f"{ {n: round(v, 1) for n, v in info['latency_ms'].items()} } vs "
+        f"{ {n: round(v, 1) for n, v in ref_info['latency_ms'].items()} } "
+        f"on one card; K1/K2 per rank of each group {info['ranks']}; in "
+        f"the scheduler's process K1 {info['k1_parent']} K2 {info['k2_parent']}; warm-up "
+        f"{info['warmup_s']:.1f} s; mesh stats {info['mesh']['folds']}")
+    if not max(gaps.values()) <= SLICE_ATOL:
+        raise AssertionError(f"sliced scheduler differs: {gaps}")
+    sharded = sum(v["batches"] for k, v in info["mesh"]["folds"].items()
+                  if k != "1x1")
+    if sharded == 0 or any(r["k2"] <= 0 for g in info["ranks"] for r in g):
+        raise AssertionError("no sharded batch, or a rank without K2")
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_slice():
+    """The serving executor's rank processes (module doc, phase 24)."""
+    from alphafold2_tpu_torch import ModelConfig
+    from alphafold2_tpu_torch.serve.meshpolicy import visible_devices
+    model = ModelConfig(predict_coords=True).build(
+        device="cuda", generator=torch.Generator().manual_seed(SEED))
+    perturb(model, SEED + 1)
+    out = {"one_card": slice_one_card(model)}
+    del model
+    torch.cuda.empty_cache()
+    cards = visible_devices()
+    if len(cards) < 2:
+        log("slice: the multi-card part did not run: one card is visible")
+        return out
+    out["folds"] = slice_executor_folds(cards)
+    out["scheduler"] = slice_scheduler(cards)
+    return out
+
+
 def compare(cpu, gpu):
     """The largest difference over outputs, the largest CPU value and
     their ratio."""
@@ -3970,6 +4364,7 @@ def main(argv=None):
     worst[torch.float32] = max(worst[torch.float32],
                                *(ringed[f"max_abs_err_s{s}"]
                                  for s in RING_SHARDS))
+    sliced = run("slice", phase_slice)
     log(f"phase seconds: {json.dumps(seconds)}")
     folds = {f["length"]: f for f in menu_fold["folds"]}
     menu_k1 = {f"{shape}_{key}": val
@@ -4039,6 +4434,8 @@ def main(argv=None):
         "launches_mesh_train_step": meshed["train"]["k1_per_step"],
         "launches_mesh_fold": meshed["fold"]["k1"],
         "mesh": meshed,
+        "launches_slice_fold_rank": sliced["one_card"]["k1_rank"],
+        "slice": sliced,
         "ring": ringed,
         **menu_k1,
         **timing,
@@ -4066,6 +4463,12 @@ def main(argv=None):
         "launches_menu_train_step": menu_train["distogram --data"][
             "k2_per_step"][-1],
         "menu_fold_k2_share_of_device_time": menu_fold["k2_share"],
+        "launches_slice_fold_rank": sliced["one_card"]["k2_rank"],
+        **({"launches_slice_512_per_rank": {
+            f"{dtype}_{label}": row["k2_per_rank"]
+            for dtype, rows in sliced["folds"].items()
+            for label, row in rows.items() if label != "one_card"}}
+           if "folds" in sliced else {}),
         **{f"menu_row_512_{key}": val for key, val in menu_k2.items()},
         **bs_timing,
     }]}

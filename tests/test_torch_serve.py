@@ -264,17 +264,26 @@ def test_warmup_batch_stays_finite(models):
 
 
 def test_slices(models):
-    """A one-device slice runs (its own key); more devices raise."""
+    """A one-device slice runs in process (its own key); a slice of two
+    devices runs on a group of two rank processes (its own key, mesh
+    1 x 2), bit-equal to the one-device fold; a mesh shape that does not
+    cover the slice raises."""
     _, _, pm = models
     ex = FoldExecutor(pm)
     _, _, batch, _ = both_batches(requests())
     out = ex.run(batch, 0, devices=["cpu"])
     assert torch.equal(out.coords, ex.run(batch, 0).coords)
     assert ex.stats()["misses"] == 2
-    with pytest.raises(NotImplementedError, match="step F2"):
-        ex.run(batch, 0, devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="step F2"):
-        ex.run_init(batch, devices=["cpu"], mesh_shape=(2, 1))
+    try:
+        two = ex.run(batch, 0, devices=["cpu", "cpu"])
+        assert torch.equal(two.coords, out.coords)
+        assert ex.stats()["misses"] == 3
+        assert ex.stats()["keys"][-1][4] == (1, 2)
+        with pytest.raises(ValueError, match="mesh"):
+            ex.run_init(batch, devices=["cpu"], mesh_shape=(2, 1))
+    finally:
+        ex.close()
+    assert not ex.groups()
 
 
 def test_fold_refuses_what_is_not_a_spec(models):

@@ -234,15 +234,15 @@ DEVICE_ARGS="${SMOKE_DEVICE:+--device $SMOKE_DEVICE}"
 # phases size their work for the card: the cascade phase serves the
 # full-width model at 64 and 256 residues (a longer fold then costs
 # more, which the express lane's shorter folds rely on), and the
-# preemption phase runs loops of 128 recycles (32 fit the 3 s grace
-# window on the card) from six clients (three requests in flight leave
-# the victim without a loop at the notice with odds of about (2/3)^3).
+# preemption phase runs loops of 202 recycles from eighteen clients,
+# so that the notice lands on the victim's first loop (phase 18 says
+# why).
 if [ "${SMOKE_DEVICE:-}" = "cpu" ]; then
     CASC_WORK="--lengths 24,48 --buckets 32,64"
     PREEMPT_WORK="--num-recycles 32 --concurrency 3"
 else
     CASC_WORK="--preset default --lengths 64,256 --buckets 64,256"
-    PREEMPT_WORK="--num-recycles 128 --concurrency 6"
+    PREEMPT_WORK="--num-recycles 202 --concurrency 18"
 fi
 
 DURATION="${SMOKE_DURATION_S:-30}"
@@ -1593,6 +1593,20 @@ fi
 if phase_on 18; then
 rm -rf serve_smoke_preempt
 rm -f serve_smoke_preempt_traces.jsonl
+
+# On the card a tiny step takes milliseconds and loops run in waves,
+# so a notice that lands mid-campaign finds the victim's loop either
+# just begun or just ending (one that ends fits the grace window and
+# finishes, and nothing spills). So on the card eighteen clients submit
+# requests 0-17 at once and the notice (before request 14) lands in
+# that first wave, on the victim's first loop, which then spills when
+# it outlasts the window twice over: 202 recycles do at any step time
+# above 8 ms. The victim must have founded that loop before its
+# watcher reads the notice, so it must own (on the fleet's hash ring,
+# which every request is forwarded to) requests that are submitted
+# early: the ring key hashes the recycle count, and at 202 recycles the
+# victim owns requests 0-3 (at counts where it owned only request 10,
+# or 10 and 13, the notice found it idle and the phase failed).
 
 timeout -k 10 600 \
     python -m alphafold2_tpu_torch.tools.serve_loadtest $DEVICE_ARGS \

@@ -263,7 +263,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
    default model serving the scheduler phase's six lengths, each
    response within 1e-3 A of a one-card scheduler's; K1 and K2
    launches per rank, walls, start-up seconds, peak memory per rank
-   and the replies' bytes and transfer time.
+   and the replies' bytes and transfer time;
+25. runner-check: K1 at the runners' shapes against its plain version
+   and timed beside it, SDPA and the bound (RUNNER_K1_SHAPES): the 1H22
+   demo's row, column (Nq = Nk = 1: a one-row MSA) and triangle
+   attention in fp32 at heads 4, D = 16 over 72 residues, and the memory
+   probe's in bf16 at heads 8, D = 64 over 384 residues and 5 MSA rows;
+26. train-1h22: the port's `scripts/train_1h22.py --train-recycles 3`
+   (at most 1500 steps, an eval every 250, early stop at 1 A): the
+   headline Kabsch RMSD below 2 A and below the random-init row's, the
+   steps, wall, ms a step, every metric and K1's launches against the
+   count predicted from the recycles drawn and the folds run;
+27. train-tiny: `scripts/train_tiny.py` for 20 steps, every loss finite,
+   none skipped, K1 16 a step;
+28. memory-probe: `tools/memory_probe.py`'s step at 384 residues, dim
+   256: the remat trunk at depths 2, 8 and 48, the reversible trunk at
+   48 and the plain loop at the depths it fits (2, 4, 8): state bytes,
+   temp (peak less state), peak, step seconds and K1 launches a step
+   against 8 a layer (remat), 12 (reversible) and 4 (plain loop).
 
 Each phase prints its seconds.
 
@@ -352,6 +369,21 @@ MENU_K1_SHAPES = {
     "menu_k1_col_300": ("msa_col", 300, 300, MSA_ROWS),
     "menu_k1_triangle_300": ("triangle", 300, 300, MSA_ROWS),
 }
+# K1's shapes on the runners' paths (phases 26-28), as (fold-path shape,
+# residues, real residues, MSA rows, heads, head width, dtype): the 1H22
+# demo in fp32 at heads 4, D = 16 (72 residues under a one-row MSA, so
+# its column attention runs at Nq = Nk = 1), and the memory probe in
+# bf16 at heads 8, D = 64 over a 384-residue crop with 5 MSA rows (BASELINE
+# config 5's trunk)
+RUNNER_K1_SHAPES = {
+    "demo_row": ("msa_row", 72, 72, 1, 4, 16, torch.float32),
+    "demo_col": ("msa_col", 72, 72, 1, 4, 16, torch.float32),
+    "demo_triangle": ("triangle", 72, 72, 1, 4, 16, torch.float32),
+    "probe_row": ("msa_row", 384, 384, MSA_ROWS, 8, 64, torch.bfloat16),
+    "probe_col": ("msa_col", 384, 384, MSA_ROWS, 8, 64, torch.bfloat16),
+    "probe_triangle": ("triangle", 384, 384, MSA_ROWS, 8, 64,
+                       torch.bfloat16),
+}
 
 
 def log(*args):
@@ -426,8 +458,9 @@ def attention_inputs(shape, dtype, device, seed, d=64):
     fold's four (t=4 templates, the last missing and the one before it
     partial, as `synthetic_features` makes them; e=1024 extra rows, each
     covering a random prefix of the real residues); or one of
-    PATH_K1_SHAPES or MENU_K1_SHAPES, without the fold-path shapes'
-    masked MSA row and ragged last row."""
+    PATH_K1_SHAPES, MENU_K1_SHAPES or RUNNER_K1_SHAPES (the last at their
+    own heads and head width), without the fold-path shapes' masked MSA
+    row and ragged last row."""
     heads, valid, rows, ragged = 8, 200, MSA_ROWS, True
     g = torch.Generator(device=device).manual_seed(seed)
     bucket = BUCKET
@@ -436,6 +469,9 @@ def attention_inputs(shape, dtype, device, seed, d=64):
     if shape in PATH_K1_SHAPES or shape in MENU_K1_SHAPES:
         shape, bucket, valid, rows = {**PATH_K1_SHAPES,
                                       **MENU_K1_SHAPES}[shape]
+        ragged = False
+    if shape in RUNNER_K1_SHAPES:
+        shape, bucket, valid, rows, heads, d, _ = RUNNER_K1_SHAPES[shape]
         ragged = False
     real = torch.arange(bucket, device=device) < valid
     templates = real[None].repeat(TEMPLATES, 1)
@@ -4239,6 +4275,254 @@ def phase_slice():
     return out
 
 
+# the runners (phases 25-28): the 1H22 demo's protocol (at most this many
+# steps, an eval every 250, early stop at 1 A, the demo's 2 A gate), the
+# tiny trainer's steps, and the memory probe's sweep at BASELINE config
+# 5's trunk (dim 256, 384 residues, depth up to 48)
+DEMO_STEPS = 1500
+DEMO_EVAL_EVERY = 250
+DEMO_RECYCLES = 3
+DEMO_TARGET_RMSD = 1.0
+DEMO_GATE_RMSD = 2.0
+DEMO_DEPTH = 2
+TINY_STEPS = 20
+TINY_DEPTH = 2
+PROBE_LENGTH = 384
+PROBE_DIM = 256
+PROBE_DEPTHS = (2, 8, 48)
+PROBE_REVERSIBLE_DEPTHS = (48,)
+# the plain loop keeps every layer's activations: 6.1 GB a layer at 384
+# residues on the card (18.2 GB of temp at depth 2, 30.3 at depth 4), so
+# depth 8 needs ~55 GB of an 80 GB card and depth 48 ~300 GB, which is
+# not run (PERF.md section 6)
+PROBE_NO_SCAN_DEPTHS = (2, 4, 8)
+
+
+def phase_runner_check():
+    """K1 at RUNNER_K1_SHAPES against its plain version (in fp32 on the
+    same values), in the dtype each runner uses, under TOLERANCE; then
+    each timed in that dtype (events and profiler device time), beside
+    its plain version, one SDPA call computing the same function and the
+    bound. Returns (worst error by dtype, {shape: times})."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    worst, times = {}, {}
+    for shape, spec in RUNNER_K1_SHAPES.items():
+        dtype = spec[-1]
+        kw = attention_inputs(shape, dtype, dev, seed=8)
+        before = attn.launch_count.value
+        out = attn.fused_attention(**kw)
+        torch.cuda.synchronize()
+        if attn.launch_count.value != before + 1:
+            raise AssertionError(f"runner-check {shape}: K1 did not launch")
+        ref = plain_attention(dict(kw, **{
+            key: kw[key].float() for key in ("q", "k", "v")}))
+        err = float((out.float() - ref).abs().max())
+        tol = TOLERANCE[dtype]
+        b, nq, d = kw["q"].shape
+        log(f"runner-check fused_attention {shape} {str(dtype)[6:]} "
+            f"B={b} Nq={nq} Nk={kw['k'].shape[1]} D={d} heads "
+            f"{kw['heads']}: max abs err {err:.3e} (tolerance {tol:.0e})")
+        if not err <= tol or not torch.isfinite(out).all():
+            raise AssertionError(f"runner-check {shape} {dtype}: max abs "
+                                 f"err {err} > {tol}")
+        worst[dtype] = max(worst.get(dtype, 0.0), err)
+        del out, ref
+        run = lambda: attn.fused_attention(**kw)  # noqa: E731
+        iters = 20 if shape.endswith("triangle") else 50
+        ms = cuda_ms(run, iters=iters)
+        # a launch this short can leave the profiler's buffer empty: once
+        # more over more launches, else not measured (None)
+        dev_ms = device_ms(run, iters=iters) or \
+            device_ms(run, iters=200) or None
+        plain_ms = cuda_ms(lambda: plain_attention(kw), iters=5)
+        add_mask = sdpa_mask(kw, dtype)
+        try:
+            library_ms = cuda_ms(lambda: sdpa(kw["q"], kw["k"], kw["v"],
+                                              attn_mask=add_mask,
+                                              scale=1.0), iters=5)
+        except RuntimeError as e:   # the library has no kernel for it
+            log(f"  sdpa refused {shape}: {str(e).splitlines()[0][:200]}")
+            library_ms = None
+        del add_mask
+        bound_ms, bound_by, nbytes, flops = attention_bound(kw)
+        times[shape] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                            library_ms=library_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
+        dev_text = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        lib = "refused" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"runner-time fused_attention {shape} {str(dtype)[6:]}: kernel "
+            f"{ms:.4f} ms (events), {dev_text} (profiler device time), "
+            f"plain {plain_ms:.4f} ms, sdpa {lib}, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} "
+            f"GFLOP), {100 * bound_ms / (dev_ms or ms):.1f} % of bound "
+            f"[{CARD}]")
+        del kw
+    return worst, times
+
+
+def phase_train_1h22():
+    """The 1H22 memorization demo (`scripts/train_1h22.py
+    --train-recycles 3`, at most DEMO_STEPS steps, an eval every
+    DEMO_EVAL_EVERY, early stop at DEMO_TARGET_RMSD): the headline Kabsch
+    RMSD must be below DEMO_GATE_RMSD and below the random-init row's,
+    every metric finite, and K1's launches as predicted from the code:
+    a train step of r recycles launches 4 a layer for each pass without
+    gradients and 8 a layer for the last (forward and the remat
+    recompute), a fold of n recycles 4 a layer a pass."""
+    import tempfile
+
+    from alphafold2_tpu_torch.scripts import train_1h22
+    draws, step_s, folds = [], [], []
+    make_step, fold_fn = train_1h22.make_recycled_train_step, \
+        train_1h22.fold
+
+    def counting_step(model, max_recycles):
+        step = make_step(model, max_recycles)
+
+        def timed(state, batch):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            step_s.append(time.perf_counter() - t0)
+            draws.append(int(metrics["recycles"]))
+            return state, metrics
+        return timed
+
+    def counting_fold(*args, num_recycles, **kwargs):
+        folds.append(num_recycles)
+        return fold_fn(*args, num_recycles=num_recycles, **kwargs)
+
+    train_1h22.make_recycled_train_step = counting_step
+    train_1h22.fold = counting_fold
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_launches()
+            reset_peak()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                out = train_1h22.main([
+                    "--steps", str(DEMO_STEPS),
+                    "--eval-every", str(DEMO_EVAL_EVERY),
+                    "--target-rmsd", str(DEMO_TARGET_RMSD),
+                    "--train-recycles", str(DEMO_RECYCLES),
+                    "--out-dir", tmp])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k1 = read_launches()[0]
+            peak = peak_gib()
+            with open(out["log"]) as f:
+                evals = [(row["step"], row["eval_rmsd"]) for row in
+                         map(json.loads, f) if "eval_rmsd" in row]
+    finally:
+        train_1h22.make_recycled_train_step = make_step
+        train_1h22.fold = fold_fn
+    per_pass = 4 * DEMO_DEPTH
+    want = sum(2 * per_pass + per_pass * r for r in draws) + \
+        sum(per_pass * (1 + n) for n in folds)
+    head, rnd = out["headline"], out["random_init_baseline"]
+    other = out["recycles_0"]
+    ms_step = 1e3 * sum(step_s) / len(step_s)
+    log(f"train-1h22: {out['train_steps']} steps (r drawn: mean "
+        f"{np.mean(draws):.3f}), wall {wall:.1f} s, {ms_step:.2f} ms a "
+        f"step; evals (step, RMSD) {evals}; headline @{DEMO_RECYCLES} "
+        f"recycles: RMSD {head['kabsch_rmsd']:.4f} A, TM "
+        f"{head['tm_score']:.4f}, GDT-TS {head['gdt_ts']:.4f}, lDDT "
+        f"{head['lddt']:.4f}, confidence {head['mean_confidence']:.4f} "
+        f"(Pearson {head['confidence_lddt_pearson']}, MAE "
+        f"{head['confidence_lddt_mae']:.4f}); @0 recycles RMSD "
+        f"{other['kabsch_rmsd']:.4f} A; random init RMSD "
+        f"{rnd['kabsch_rmsd']:.4f} A; K1 launches {k1} (predicted {want}: "
+        f"{len(draws)} steps, {len(folds)} folds); peak {peak:.3f} GiB "
+        f"[{CARD}]")
+    values = [row[k] for row in (head, other, rnd) for k in (
+        "kabsch_rmsd", "tm_score", "gdt_ts", "lddt", "mean_confidence")]
+    if not np.isfinite(values).all():
+        raise AssertionError(f"train-1h22: non-finite metrics {out}")
+    if not head["kabsch_rmsd"] < DEMO_GATE_RMSD or \
+            not head["kabsch_rmsd"] < rnd["kabsch_rmsd"]:
+        raise AssertionError(
+            f"train-1h22: headline RMSD {head['kabsch_rmsd']} A is not "
+            f"below {DEMO_GATE_RMSD} A and the random-init "
+            f"{rnd['kabsch_rmsd']} A")
+    if k1 != want:
+        raise AssertionError(f"train-1h22: K1 launched {k1} times, "
+                             f"predicted {want}")
+    return {"train_steps": out["train_steps"], "wall_s": wall,
+            "ms_per_step": ms_step, "mean_recycles": float(np.mean(draws)),
+            "evals": evals, "headline": head, "recycles_0": other,
+            "random_init_baseline": rnd, "k1_launches": k1,
+            "k1_predicted": want, "peak_gib": peak}
+
+
+def phase_train_tiny():
+    """`scripts/train_tiny.py` for TINY_STEPS steps: every loss finite,
+    no step skipped by the guard, K1 8 a layer a step (remat)."""
+    from alphafold2_tpu_torch.scripts import train_tiny
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        history = train_tiny.main([str(TINY_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = read_launches()[0]
+    losses = [h["loss"] for h in history]
+    skipped = sum(h["skipped"] for h in history)
+    want = TINY_STEPS * 8 * TINY_DEPTH
+    log(f"train-tiny: {TINY_STEPS} steps in {wall:.2f} s, losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, skipped {skipped}, K1 "
+        f"launches {k1} (predicted {want}) [{CARD}]")
+    if len(losses) != TINY_STEPS or not np.isfinite(losses).all() or \
+            skipped or k1 != want:
+        raise AssertionError(f"train-tiny: losses {losses}, skipped "
+                             f"{skipped}, K1 {k1} (predicted {want})")
+    return {"losses": losses, "skipped": skipped, "wall_s": wall,
+            "k1_launches": k1, "k1_per_step": k1 // TINY_STEPS}
+
+
+def probe_label(row):
+    """'d48_remat', 'd48_rev' or 'd2_plain' for a memory-probe row."""
+    kind = "rev" if row["reversible"] else \
+        "remat" if row["use_scan"] else "plain"
+    return f"d{row['depth']}_{kind}"
+
+
+def phase_memory_probe():
+    """`tools/memory_probe.py`'s step at PROBE_LENGTH residues and dim
+    PROBE_DIM: the remat trunk at PROBE_DEPTHS, the reversible trunk at
+    PROBE_REVERSIBLE_DEPTHS and the plain loop at PROBE_NO_SCAN_DEPTHS,
+    each row with its peak, step seconds and K1 launches a step against
+    the prediction from the code (8 a layer under remat, 12 reversible,
+    4 for the plain loop), and a finite loss."""
+    from alphafold2_tpu_torch.tools import memory_probe
+    runs = [(d, False, True) for d in PROBE_DEPTHS] + \
+        [(d, True, True) for d in PROBE_REVERSIBLE_DEPTHS] + \
+        [(d, False, False) for d in PROBE_NO_SCAN_DEPTHS]
+    rows = []
+    for depth, reversible, use_scan in runs:
+        reset_launches()
+        row = memory_probe.analyze(depth, PROBE_LENGTH, PROBE_DIM,
+                                   reversible, use_scan=use_scan, run=True,
+                                   device="cuda")
+        k1 = read_launches()[0]
+        want = depth * (12 if reversible else 8 if use_scan else 4)
+        row.update(k1_launches=k1, k1_predicted=want)
+        rows.append(row)
+        kind = "reversible" if reversible else \
+            "remat" if use_scan else "plain loop"
+        log(f"memory-probe depth {depth} {kind}: state "
+            f"{row['argument_size_mb']} MB, temp {row['temp_size_mb']} MB, "
+            f"peak {row['peak_mb_in_use'] / 1024:.3f} GiB, step "
+            f"{row['step_s']:.3f} s, loss {row['loss']:.4f}, K1 {k1} a "
+            f"step (predicted {want}) [{CARD}]")
+        if not np.isfinite(row["loss"]) or k1 != want:
+            raise AssertionError(f"memory-probe: {row}")
+    remat = [r for r in rows if r["use_scan"] and not r["reversible"]]
+    log("memory-probe: remat temp MB by depth " + ", ".join(
+        f"{r['depth']}: {r['temp_size_mb']}" for r in remat))
+    return rows
+
+
 def compare(cpu, gpu):
     """The largest difference over outputs, the largest CPU value and
     their ratio."""
@@ -4365,6 +4649,12 @@ def main(argv=None):
                                *(ringed[f"max_abs_err_s{s}"]
                                  for s in RING_SHARDS))
     sliced = run("slice", phase_slice)
+    runner_worst, runner_times = run("runner-check", phase_runner_check)
+    for dtype, err in runner_worst.items():
+        worst[dtype] = max(worst[dtype], err)
+    demo = run("train-1h22", phase_train_1h22)
+    tiny = run("train-tiny", phase_train_tiny)
+    probe = run("memory-probe", phase_memory_probe)
     log(f"phase seconds: {json.dumps(seconds)}")
     folds = {f["length"]: f for f in menu_fold["folds"]}
     menu_k1 = {f"{shape}_{key}": val
@@ -4437,6 +4727,16 @@ def main(argv=None):
         "launches_slice_fold_rank": sliced["one_card"]["k1_rank"],
         "slice": sliced,
         "ring": ringed,
+        "launches_train_1h22": demo["k1_launches"],
+        "launches_train_tiny_step": tiny["k1_per_step"],
+        "launches_memory_probe_step": {
+            probe_label(r): r["k1_launches"] for r in probe},
+        "train_1h22": demo,
+        "train_tiny": tiny,
+        "memory_probe": probe,
+        **{f"runner_k1_{shape}_{key}": val
+           for shape, times in runner_times.items()
+           for key, val in times.items()},
         **menu_k1,
         **timing,
     }, {

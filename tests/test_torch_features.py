@@ -34,7 +34,6 @@ from alphafold2_tpu_torch.ops.block_sparse import KernelSpec
 from alphafold2_tpu_torch.train import loop as pt_loop
 from alphafold2_tpu_torch.weights import load_jax_params
 from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
-from test_torch_serve import perturb_numpy
 
 
 DIM, HEADS, DIM_HEAD, N, B, ROWS, T, E = 32, 2, 16, 16, 2, 3, 2, 4
@@ -191,9 +190,11 @@ def test_cross_attention_matches_jax():
     cmask[4] = False                              # no valid key
     jm = jax_prim.Attention(dim=DIM, heads=HEADS, dim_head=DIM_HEAD)
     pm = pt_prim.Attention(DIM, HEADS, DIM_HEAD)
-    params = jm.init(jax.random.PRNGKey(2), x, mask=mask, context=ctx,
-                     context_mask=cmask)
-    params = perturb_numpy(params, 3)
+    params = random_params(
+        jax.eval_shape(lambda key: jm.init(key, x, mask=mask, context=ctx,
+                                           context_mask=cmask),
+                       jax.random.PRNGKey(2)),
+        np.random.default_rng(3))
     load_jax_params(pm, jax.tree.map(np.asarray, params))
     for kw in (dict(mask=mask, context_mask=cmask), dict(mask=mask),
                dict(context_mask=cmask), {}):
@@ -221,9 +222,11 @@ def test_template_stack_matches_jax():
     pm = pt_evo.PairwiseAttentionBlock(DIM, HEADS, DIM_HEAD,
                                        with_outer_mean=False)
     assert pm.outer_mean is None
-    params = jm.init(jax.random.PRNGKey(5), x, mask=mask)
+    params = random_params(
+        jax.eval_shape(lambda key: jm.init(key, x, mask=mask),
+                       jax.random.PRNGKey(5)),
+        np.random.default_rng(6))
     assert "outer_mean" not in params["params"]
-    params = perturb_numpy(params, 6)
     load_jax_params(pm, jax.tree.map(np.asarray, params))
     ref, out = x, t(x)
     for _ in range(2):

@@ -34,7 +34,7 @@ from alphafold2_tpu_torch.model import evoformer as pt_evo
 from alphafold2_tpu_torch.model import primitives as pt_prim
 from alphafold2_tpu_torch.model import structure as pt_struct
 from alphafold2_tpu_torch.weights import load_jax_params
-from test_torch_serve import perturb_numpy, random_params
+from test_torch_serve import random_params
 from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
 
 
@@ -56,12 +56,22 @@ def _fp32_torch():
 
 
 def bridged(jax_module, port_module, *args, seed=0, **kwargs):
-    """Init the JAX module on `args`, perturb its params, and load them
-    into the port module. Returns the perturbed JAX params."""
-    params = jax_module.init(jax.random.PRNGKey(seed), *args, **kwargs)
-    params = perturb_numpy(params, seed + 100)
+    """Draw the JAX module's params with numpy on its init's shapes on
+    `args` (traced abstractly: an eager init compiles every primitive on
+    its own) and load them into the port module. Returns the JAX
+    params."""
+    shapes = jax.eval_shape(
+        lambda key: jax_module.init(key, *args, **kwargs),
+        jax.random.PRNGKey(seed))
+    params = random_params(shapes, np.random.default_rng(seed + 100))
     load_jax_params(port_module, jax.tree.map(np.asarray, params))
     return params
+
+
+def jit_apply(jax_module, params, *args, **kwargs):
+    """The JAX module's forward on `args` under `jax.jit` (one compile,
+    not one per primitive)."""
+    return jax.jit(lambda p: jax_module.apply(p, *args, **kwargs))(params)
 
 
 def t(x):
@@ -107,7 +117,7 @@ def test_attention_with_repeated_bias_and_mask():
     jm = jax_prim.Attention(dim=DIM, heads=HEADS, dim_head=DIM_HEAD)
     pm = pt_prim.Attention(DIM, HEADS, DIM_HEAD)
     params = bridged(jm, pm, x, **kw)
-    ref = jm.apply(params, x, **kw)
+    ref = jit_apply(jm, params, x, **kw)
     out = pm(t(x), mask=t(mask), attn_bias=t(bias), attn_bias_repeat=rep)
     close(ref, out)
 
@@ -129,7 +139,7 @@ def test_axial_attention_with_edges(row, global_query):
                                 col_attn=not row, accept_edges=True,
                                 global_query_attn=global_query)
     params = bridged(jm, pm, x, edges=x, mask=mask)
-    ref = jm.apply(params, x, edges=x, mask=mask)
+    ref = jit_apply(jm, params, x, edges=x, mask=mask)
     close(ref, pm(t(x), edges=t(x), mask=t(mask)))
 
 
@@ -141,7 +151,7 @@ def test_triangle_multiplicative(mix):
     jm = jax_prim.TriangleMultiplicativeModule(dim=DIM, mix=mix)
     pm = pt_prim.TriangleMultiplicativeModule(DIM, mix=mix)
     params = bridged(jm, pm, x, mask=mask)
-    close(jm.apply(params, x, mask=mask), pm(t(x), mask=t(mask)))
+    close(jit_apply(jm, params, x, mask=mask), pm(t(x), mask=t(mask)))
 
 
 @pytest.mark.parametrize("reference_scale", [False, True])
@@ -154,7 +164,8 @@ def test_outer_mean(reference_scale):
     jm = jax_prim.OuterMean(dim=DIM, reference_scale=reference_scale)
     pm = pt_prim.OuterMean(DIM, reference_scale=reference_scale)
     params = bridged(jm, pm, x, mask=msa_mask)
-    close(jm.apply(params, x, mask=msa_mask), pm(t(x), mask=t(msa_mask)))
+    close(jit_apply(jm, params, x, mask=msa_mask),
+          pm(t(x), mask=t(msa_mask)))
 
 
 # the trunk's conv blocks (use_conv) with an even kernel (SAME padding
@@ -199,7 +210,7 @@ def test_structure_module():
     jm = jax_struct.StructureModule(dim=DIM, depth=4, heads=1)
     pm = pt_struct.StructureModule(DIM, depth=4, heads=1)
     params = bridged(jm, pm, single, pair, mask=mask)
-    rc, rs = jm.apply(params, single, pair, mask=mask)
+    rc, rs = jit_apply(jm, params, single, pair, mask=mask)
     pc, ps = pm(t(single), t(pair), mask=t(mask))
     close(np.asarray(rc)[:, :VALID], pc[:, :VALID], atol=COORDS_ATOL)
     close(np.asarray(rs)[:, :VALID], ps[:, :VALID])
@@ -248,8 +259,8 @@ def test_alphafold2_forward(models, recycled):
         pair = rng.normal(size=(1, N, N, DIM)).astype(np.float32)
         rec_j = jax_af2.Recyclables(coords, row, pair)
         rec_p = pt_af2.Recyclables(t(coords), t(row), t(pair))
-    rc, rret = jm.apply(params, **batch, recyclables=rec_j,
-                        return_aux_logits=True, return_recyclables=True)
+    rc, rret = jit_apply(jm, params, **batch, recyclables=rec_j,
+                         return_aux_logits=True, return_recyclables=True)
     with torch.inference_mode():
         pc, pret = pm(**torch_batch(batch), recyclables=rec_p,
                       return_aux_logits=True, return_recyclables=True)
@@ -275,7 +286,8 @@ def bucket_margin(coords, mask):
 
 def test_fold_matches_jax(models):
     jm, params, pm, batch = models
-    ref = jax_predict.fold(jm, params, **batch, num_recycles=2)
+    ref = jax.jit(functools.partial(jax_predict.fold, jm, num_recycles=2))(
+        params, **batch)
     out = pt_predict.fold(pm, **batch, num_recycles=2, device="cpu")
     # the seed is chosen so that no recycled CA distance lies within 1e-4
     # of a bucket boundary, where an fp32 rounding could flip the bucket
@@ -666,8 +678,11 @@ def test_bf16_trunk_tracks_jax(models):
     load_jax_params(pm16, jax.tree.map(np.asarray, params))
     assert all(p.dtype == torch.float32 for p in pm16.parameters())
     v = slice(0, VALID)
-    _, r32 = jm.apply(params, **batch, return_aux_logits=True)
-    _, r16 = jm16.apply(params, **batch, return_aux_logits=True)
+    # the same call as test_alphafold2_forward's first pass: one program
+    kw = dict(recyclables=None, return_aux_logits=True,
+              return_recyclables=True)
+    _, r32 = jit_apply(jm, params, **batch, **kw)
+    _, r16 = jit_apply(jm16, params, **batch, **kw)
     with torch.inference_mode():
         coords, pret = pm16(**torch_batch(batch), return_aux_logits=True)
     assert coords.dtype == pret.distance.dtype == torch.float32

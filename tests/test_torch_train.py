@@ -16,7 +16,6 @@ parameters after one Adam step within 1e-5; the bf16 distogram step's
 loss within 2e-2 relative of the JAX package's bf16 loss.
 """
 
-import functools
 import json
 import threading
 import time
@@ -52,7 +51,7 @@ from alphafold2_tpu_torch.train import state as pt_state
 from alphafold2_tpu_torch.utils import flops as pt_flops
 from alphafold2_tpu_torch.weights import load_jax_params
 from test_torch_serve import _torch_threads_per_worker  # noqa: F401  (autouse)
-from test_torch_serve import perturb_numpy, random_params
+from test_torch_serve import random_params
 
 
 DIM, HEADS, DIM_HEAD, N, ROWS, VALID = 32, 2, 16, 16, 3, 12
@@ -399,8 +398,10 @@ def test_mlm_loss_head_matches_jax():
     replaced = rng.random((1, ROWS, N)) < 0.3
     jm = jax_mlm.MLM(dim=DIM, num_tokens=constants.NUM_AMINO_ACIDS,
                      mask_id=constants.NUM_AMINO_ACIDS)
-    params = perturb_numpy(jm.init(jax.random.PRNGKey(0), embed, seq,
-                                   replaced), 1)
+    params = random_params(
+        jax.eval_shape(lambda key: jm.init(key, embed, seq, replaced),
+                       jax.random.PRNGKey(0)),
+        np.random.default_rng(1))
     pm = pt_mlm.MLM(DIM, constants.NUM_AMINO_ACIDS,
                     mask_id=constants.NUM_AMINO_ACIDS)
     load_jax_params(pm, jax.tree.map(np.asarray, params))
@@ -425,13 +426,29 @@ def make_batch(seed, with_coords=True):
     return batch
 
 
-def jax_noise(batch, seed):
-    """MLM noise drawn by the JAX package's MLM.noise from a JAX key."""
-    jm = jax_mlm.MLM(dim=DIM, num_tokens=constants.NUM_AMINO_ACIDS,
-                     mask_id=constants.NUM_AMINO_ACIDS)
-    noised, replaced = jm.apply({}, jax.random.PRNGKey(seed), batch["msa"],
-                                batch["msa_mask"], method=jax_mlm.MLM.noise)
-    return np.asarray(noised), np.asarray(replaced)
+def mlm_noise(batch, seed):
+    """One MLM draw that both packages' steps are given (the noise itself
+    is held against JAX's draw by the MLM tests above), made with numpy:
+    ~15 % of the valid MSA tokens replaced, a third of them by a random
+    amino acid and the rest by the mask token. An eager JAX draw would
+    compile each of its ops on its own."""
+    rng = np.random.default_rng(seed)
+    msa = batch["msa"]
+    replaced = (rng.random(msa.shape) < 0.15) & batch["msa_mask"]
+    tokens = np.where(rng.random(msa.shape) < 1 / 3,
+                      rng.integers(1, constants.NUM_AMINO_ACIDS, msa.shape),
+                      constants.NUM_AMINO_ACIDS)
+    return np.where(replaced, tokens, msa), replaced
+
+
+@jax.jit
+def jax_adam_step(grads, params):
+    """One step of the JAX package's `adam(LR)` from a fresh state, under
+    jit (eagerly every leaf's ops compile on their own); one compile per
+    parameter tree."""
+    tx = jax_state.adam(LR)
+    updates, _ = tx.update(grads, tx.init(params), params)
+    return optax.apply_updates(params, updates)
 
 
 def kabsch_broadcast_flip(x, y, mask=None):
@@ -489,8 +506,10 @@ def test_reference_kabsch_is_the_jax_kabsch():
 class Reference:
     """One configuration's JAX step and the port model bridged from the
     same perturbed params, with both MLM noisings patched to one JAX
-    draw. `jax_step(recyclables)` gives (loss, grads, params after one
-    Adam step) as numpy trees."""
+    draw. `jax_step(recycled)` gives (loss, grads, params after one Adam
+    step, metrics), the gradients and parameters in the port's layout;
+    `recycled` feeds the step the recyclables of one JAX pass without
+    gradients, traced in the same program."""
 
     def __init__(self, kw, batch, seed, dtype=jnp.float32):
         self.kw, self.batch = kw, batch
@@ -503,33 +522,28 @@ class Reference:
                 mask=batch["mask"], msa_mask=batch["msa_mask"], train=True),
             jax.random.PRNGKey(seed))
         self.params = random_params(shapes, np.random.default_rng(seed + 2))
-        self.noise = jax_noise(batch, seed + 3)
-        self.tx = jax_state.adam(LR)
-        self._first = None
+        self.noise = mlm_noise(batch, seed + 3)
+        self._steps = {}
 
-    def _adam_step(self, grads, params):
-        updates, _ = self.tx.update(grads, self.tx.init(params), params)
-        return optax.apply_updates(params, updates)
-
-    def port_model(self, dtype=torch.float32):
-        pm = pt_af2.Alphafold2(**self.kw, dtype=dtype, device="cpu")
+    def port_model(self, dtype=torch.float32, device="cpu"):
+        pm = pt_af2.Alphafold2(**self.kw, dtype=dtype, device=device)
+        if device == "meta":        # no weights drawn: all are loaded
+            pm.to_empty(device="cpu")
         load_jax_params(pm, jax.tree.map(np.asarray, self.params))
         return pm
 
     def bridged(self, tree):
         """A JAX params-shaped tree in the port's parameter layout."""
-        holder = self.port_model()
+        holder = self.port_model(device="meta")
         load_jax_params(holder, jax.tree.map(np.asarray, tree))
         return dict(holder.named_parameters())
 
-    def jax_step(self, recyclables=None):
-        if recyclables is None:
-            if self._first is None:
-                self._first = self._jax_step(None)
-            return self._first
-        return self._jax_step(recyclables)
+    def jax_step(self, recycled=False):
+        if recycled not in self._steps:
+            self._steps[recycled] = self._jax_step(recycled)
+        return self._steps[recycled]
 
-    def _jax_step(self, recyclables):
+    def _jax_step(self, recycled):
         batch = {k: jnp.asarray(v) for k, v in self.batch.items()}
         noised, replaced = map(jnp.asarray, self.noise)
         with pytest.MonkeyPatch.context() as mp:
@@ -537,16 +551,25 @@ class Reference:
                        lambda self, rng, seq, mask: (noised, replaced))
             mp.setattr(jgeo, "kabsch", kabsch_broadcast_flip)
 
-            def loss_fn(p):
-                return jax_loop.compute_loss(self.jm, p, batch,
-                                             jax.random.PRNGKey(5),
-                                             train=True,
-                                             recyclables=recyclables)
+            def gradients(p):
+                rec = None
+                if recycled:
+                    _, ret = self.jm.apply(
+                        p, batch["seq"], msa=batch["msa"],
+                        mask=batch["mask"], msa_mask=batch["msa_mask"],
+                        return_aux_logits=True, return_recyclables=True)
+                    rec = jax.tree.map(jax.lax.stop_gradient,
+                                       ret.recyclables)
 
-            grads, metrics = jax.jit(jax.grad(loss_fn, has_aux=True))(
-                self.params)
-        # the Adam step under jit: eager, every leaf's ops compile alone
-        new_params = jax.jit(self._adam_step)(grads, self.params)
+                def loss_fn(q):
+                    return jax_loop.compute_loss(self.jm, q, batch,
+                                                 jax.random.PRNGKey(5),
+                                                 train=True,
+                                                 recyclables=rec)
+                return jax.grad(loss_fn, has_aux=True)(p)
+
+            grads, metrics = jax.jit(gradients)(self.params)
+        new_params = jax_adam_step(grads, self.params)
         return (float(metrics["loss"]), self.bridged(grads),
                 self.bridged(new_params),
                 {k: float(v) for k, v in metrics.items()})
@@ -639,16 +662,8 @@ def test_recycled_train_step_matches_jax(coords_ref, monkeypatch, recycles):
     """make_recycled_train_step with r drawn as 0 and as 1, against JAX's
     compute_loss with the recyclables of one JAX pass without gradients
     (r = 1) or none (r = 0)."""
-    rec = None
-    if recycles:
-        b = coords_ref.batch
-        _, ret = jax.jit(functools.partial(
-            coords_ref.jm.apply, return_aux_logits=True,
-            return_recyclables=True))(
-            coords_ref.params, b["seq"], msa=b["msa"], mask=b["mask"],
-            msa_mask=b["msa_mask"])
-        rec = ret.recyclables
-    ref_loss, ref_grads, ref_params, _ = coords_ref.jax_step(rec)
+    ref_loss, ref_grads, ref_params, _ = coords_ref.jax_step(
+        recycled=bool(recycles))
     port_noise(monkeypatch, coords_ref.noise)
     # the generator seed whose first draw is `recycles`
     seed = next(s for s in range(100) if pt_loop.draw_recycles(

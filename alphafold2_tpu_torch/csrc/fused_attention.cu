@@ -16,32 +16,57 @@
 // over every key, exactly as the plain version does. Keys past Nk are
 // -inf. The softmax runs in fp32; the output is written in the input type.
 //
-// What bounds it on this card: at the main path's triangle shape (B=2048,
-// N=256, D=64, bf16) the call must move 270.7 MB (q, k, v, out, the bias
-// and the masks), 0.0808 ms at 3.35 TB/s, against 34.36 GFLOP, 0.0347 ms
-// on the bf16 tensor cores: it is bound by device-memory bytes.
+// What bounds it on this card (bf16, D = 64, heads 8, the H100's 3.35
+// TB/s and 989 dense bf16 TFLOP/s; chip_smoke.py prints each shape's
+// bound, PERF.md keeps them). The triangle attentions (B = 2048 at N =
+// 256; the template stack's B = 8192; B = 3072 at 384 and 4096 at 512)
+// and the extra-MSA row attention (B = 8192, N = 256) are bound by
+// device-memory bytes: the 256 triangle moves 270.7 MB (0.0808 ms)
+// against 34.4 GFLOP (0.0347 ms). The extra-MSA column attention (B =
+// 2048, N = 1024, no bias) is bound by operations: 550 GFLOP (0.556 ms)
+// against 1.07 GB (0.32 ms); beside its products, its softmax takes one
+// exp2 a logit on the SM's 16-a-clock MUFU, as long as the products at
+// this head width.
 //
-// What the design does about it. bf16 (the fold path) runs on the shared
-// tensor-core tile of attention_tile.cuh: mma.sync products with fp32
-// accumulators, k and v kept bf16 in padded shared memory and brought in
-// by cp.async in a two-stage ring, so each tile's copy overlaps the
-// previous tile's products, the online softmax in registers, the bias
-// replayed by index straight from L2 and never materialised per fold.
-// One thread block owns one (batch*head, 128 queries): eight warps of 16
-// rows, held to 128 registers so that two blocks share an SM, over key
-// tiles of 64 (at D = 128: 64 queries, four warps, key tiles of 32). The
-// loop is bound by latency more than by any unit's rate, so occupancy is
-// what this shape buys; on the card it beat 64-query blocks at ~170
-// registers (three blocks an SM) and 32-key tiles (PERF.md). Short query
-// axes (the MSA column attention, N = 5) take one warp per batch*head
-// row, four such warps to a block, over key tiles of 16. fp32 (the small
-// parity folds) keeps the first design: one thread per query row, fp32
-// FMAs on the CUDA cores, keys streamed through shared memory in tiles of
-// 32, online softmax rescaled once per 8 keys; no TF32.
+// Layout 3 (bf16, Nq >= 64): the warpgroup kernel of attention_wgmma.cuh.
+// One producer warp issues TMA loads of Q and, per key tile, of K with
+// the fp32 bias tile of the same (rows, keys) and of V, into two
+// mbarrier rings (128-byte swizzle; 3-D tensor maps, so rows and keys past
+// N are zero-filled per batch*head row). The bias reaches the softmax
+// from shared memory, prefetched with its tile, not from L2 in the
+// softmax's critical path. Two consumer warpgroups of 64 query rows run
+// S = Q . K^T and O += P . V on wgmma (P in registers as the A operand, V
+// through a transposed descriptor), the P . V of one tile overlapping the
+// softmax of the next. One persistent block per SM walks the (batch*head,
+// 128 queries) units; Q is double-buffered so the next unit's loads run
+// under this one's last tiles, and O leaves through shared memory by one
+// TMA store per warpgroup.
 //
-// What is left: wgmma with TMA and an mbarrier ring (64-row warpgroup
-// tiles), persistent blocks that walk many (batch*head, query tile) units
-// so one unit's epilogue overlaps the next one's loads.
+// Layouts 1 and 2 (the mma.sync tile of attention_tile.cuh) keep the
+// shapes layout 3 does not take, as ops.attention.kernel_layout routes
+// them: Nq <= 16 (layout 2: the MSA column attention at N = 5, the
+// template pointwise attention's single query, one-row MSA columns), where
+// a 64-row warpgroup tile would be nearly all padding; 16 < Nq < 64
+// (layout 1), for the same reason; Nk not a multiple of 4 under a bias
+// (layout 1), since a TMA row stride must be a multiple of 16 bytes; and
+// D > 128 (the sliced path, layouts 1 and 2), whose accumulators would not
+// fit a warpgroup's registers. Layout 1 is eight warps on 128 queries
+// over key tiles of 64 (four on 64 at D = 128), k and v in a two-stage
+// cp.async ring, the bias read from L2; layout 2 one warp per batch*head
+// row, four rows to a block. fp32 (the small parity folds) keeps the first
+// design: one thread per query row, fp32 FMAs on the CUDA cores, keys
+// streamed through shared memory in tiles of 32, online softmax rescaled
+// once per 8 keys; no TF32.
+//
+// What is left (PERF.md): layout 3 reaches about half of its bound at the
+// N = 256 shapes, a quarter to a third at 384, 512 and the extra-MSA
+// column. The SM's shared-memory port is the limit at the triangles: each
+// key tile brings K, V and a bias tile in by TMA, then the products read
+// Q, K and V and the softmax reads the bias, ~128 KB through 128 bytes a
+// clock; the bias alone is half of it, and every (row, key) reads 4
+// bytes of it. At the extra-MSA column it is the softmax's exp2 on the
+// MUFU. Q kept in registers for S, the bias kept across the fold rows
+// that replay it, and exp2 partly on the FMA pipe are the next steps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,6 +74,7 @@
 #include <stdint.h>
 
 #include "attention_tile.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -355,11 +381,71 @@ int launch_mma(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// Layout 3: the warpgroup kernel of attention_wgmma.cuh (TMA, an mbarrier
+// ring, wgmma, persistent blocks).
+template <int D, int BIAS>
+__global__ void __launch_bounds__(af2wg::kThreads, 1)
+fused_attention_wgmma_kernel(const __grid_constant__ af2wg::Maps maps,
+                             const af2wg::Params p) {
+  af2wg::attend<D, BIAS>(maps, p);
+}
+
+constexpr int kMaxDevices = 64;
+constexpr int kTensorMapRefused = -2;
+
+// the SM count of device `dev`, with the instance's shared-memory limit
+// raised there, both once per device and instance
+template <int D, int BIAS>
+int sm_count(int dev) {
+  static int sms[kMaxDevices];
+  if (sms[dev] == 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_attention_wgmma_kernel<D, BIAS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        af2wg::Config<D, BIAS>::SMEM);
+    if (e != cudaSuccess) return -(int)e;
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms[dev];
+}
+
+// one persistent block an SM (at most one a unit), walking the units
+template <int D, int BIAS>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const float* bias, const uint8_t* q_mask,
+                 const uint8_t* k_mask, void* out, int b, int nq, int nk,
+                 int heads, int bias_repeat, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  const int sms = sm_count<D, BIAS>(dev);
+  if (sms <= 0) return sms == 0 ? (int)cudaErrorInvalidDevice : -sms;
+  af2wg::Maps maps;
+  if (!af2wg::encode_maps<D, BIAS>(&maps, q, k, v, bias, out, b, nq, nk,
+                                   b / bias_repeat))
+    return kTensorMapRefused;
+  const int q_tiles = (nq + af2wg::kTileRows - 1) / af2wg::kTileRows;
+  const long long units = (long long)b * q_tiles;
+  if (units > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const af2wg::Params p{q_mask, k_mask, nq, nk, heads, bias_repeat, q_tiles,
+                        (int)units};
+  const unsigned grid = (unsigned)(units < sms ? units : sms);
+  constexpr int smem = af2wg::Config<D, BIAS>::SMEM;
+  fused_attention_wgmma_kernel<D, BIAS>
+      <<<grid, af2wg::kThreads, smem, stream>>>(maps, p);
+  return (int)cudaGetLastError();
+}
+
 // The bf16 layouts. 1: eight warps on 128 queries of one batch*head row,
 // key tiles of 64 (at D = 128: four warps on 64 queries, key tiles of
 // 32); 2: one warp per batch*head row (16 queries), four rows to a block,
-// key tiles of 16. Layout 0 is the shape rule: 2 for Nq <= 16 (the MSA
-// column attention, where a 128-row tile would be 96 % padding), else 1.
+// key tiles of 16; 3: the warpgroup kernel, for Nq >= 64 and, with a
+// bias, Nk a multiple of 4 (the bias map's row stride must be a multiple
+// of 16 bytes). Layout 0 is the older shape rule, kept for callers that pass
+// no layout: 2 for Nq <= 16 (the MSA column attention, where a 128-row
+// tile would be 96 % padding), else 1. The Python wrapper chooses
+// (`kernel_layout` in ops/attention.py) and passes its choice.
 template <int D>
 int dispatch_mma(int layout, const void* q, const void* k, const void* v,
                  const float* bias, const uint8_t* q_mask,
@@ -375,6 +461,13 @@ int dispatch_mma(int layout, const void* q, const void* k, const void* v,
     case 2:
       return launch_mma<D, 1, 4, 16>(q, k, v, bias, q_mask, k_mask, out, b,
                                      nq, nk, heads, bias_repeat, stream);
+    case 3:
+      if (nq < af2wg::kRows || (bias != nullptr && nk % 4 != 0)) return -1;
+      return bias != nullptr
+                 ? launch_wgmma<D, 1>(q, k, v, bias, q_mask, k_mask, out, b,
+                                      nq, nk, heads, bias_repeat, stream)
+                 : launch_wgmma<D, 0>(q, k, v, bias, q_mask, k_mask, out, b,
+                                      nq, nk, heads, bias_repeat, stream);
     default:
       return -1;
   }
@@ -495,11 +588,12 @@ int dispatch_sliced_mma(int layout, const void* q, const void* k,
 }  // namespace
 
 // dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
-// tile). layout: 0 takes the shape rule; 1 or 2 forces a bf16 layout (see
-// dispatch_mma; for measuring the rule on the card). d is 16, 32, 64, 128
-// or a multiple of 128 (the sliced path). bias, q_mask and k_mask may be
-// null. Returns cudaGetLastError() after the launch (0 on success), or -1
-// for a head width, dtype or layout the kernel does not take.
+// kernels). layout: 0 takes the older shape rule; 1, 2 or 3 picks a bf16
+// layout (see dispatch_mma; the sliced path has 1 and 2). d is 16, 32,
+// 64, 128 or a multiple of 128 (the sliced path). bias, q_mask and k_mask
+// may be null. Returns cudaGetLastError() after the launch (0 on
+// success), -1 for a head width, dtype, layout or shape the kernel does
+// not take, -2 when the driver refuses a tensor map of layout 3.
 extern "C" int af2_fused_attention(const void* q, const void* k,
                                    const void* v, const float* bias,
                                    const uint8_t* q_mask,

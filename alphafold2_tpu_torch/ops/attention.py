@@ -18,8 +18,10 @@ Contract (shared by the CUDA kernel and the plain version):
 
 `fused_attention` takes the CUDA kernel (`csrc/fused_attention.cu`) for
 CUDA tensors and the plain version for CPU tensors: bf16 runs on the
-tensor-core tile (`csrc/attention_tile.cuh`), fp32 on the CUDA cores. On
-the card there is no fallback: a tensor the kernel does not take raises.
+tensor cores in the layout `kernel_layout` picks (the warpgroup kernel of
+`csrc/attention_wgmma.cuh` or the mma.sync tile of
+`csrc/attention_tile.cuh`), fp32 on the CUDA cores. On the card there is
+no fallback: a tensor the kernel does not take raises.
 
 Head widths on the card (`kernel_head_dim`): D in {16, 32, 64, 128}
 launches as it is; any other D up to 128 is zero-padded along D to the
@@ -51,6 +53,34 @@ MASK_VALUE = -1e9
 HEAD_DIMS = (16, 32, 64, 128)
 SLICE = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the kernel's layouts (`dispatch_mma` in csrc/fused_attention.cu): 0 is
+# the fp32 kernel's only one (and, for bf16, the C side's older rule: ROW
+# for Nq <= 16, else TILE); TILE: the mma.sync tile, eight warps on 128
+# queries (four on 64 at D = 128, and the sliced path); ROW: one warp per
+# batch*head row of <= 16 queries; WARPGROUP: TMA, an mbarrier ring, wgmma
+# and persistent blocks (csrc/attention_wgmma.cuh)
+F32, TILE, ROW, WARPGROUP = 0, 1, 2, 3
+
+
+def kernel_layout(nq: int, nk: int, d: int, dtype: torch.dtype,
+                  has_bias: bool) -> int:
+    """The layout a launch at (Nq, Nk, launch head width d, dtype) takes,
+    chosen from device times on the H100 (PERF.md). WARPGROUP wherever it
+    applies: bf16, d in HEAD_DIMS, Nq >= 64 (a warpgroup owns 64 query
+    rows) and, with a bias, Nk a multiple of 4 (its TMA row stride must be
+    a multiple of 16 bytes). ROW for Nq <= 16 (the MSA column attention
+    at N = 5, the template pointwise attention's one query), where a
+    64- or 128-row tile would be mostly padding; TILE for the rest (16 <
+    Nq < 64, Nk not a multiple of 4 under a bias, the sliced path above
+    d = 128)."""
+    if dtype != torch.bfloat16:
+        return F32
+    if nq <= 16:
+        return ROW
+    if d in HEAD_DIMS and nq >= 64 and not (has_bias and nk % 4):
+        return WARPGROUP
+    return TILE
 
 
 class LaunchCounter:
@@ -183,14 +213,18 @@ def _library():
     return fn
 
 
-def _launch(q, k, v, bias, q_mask, k_mask, heads, bias_repeat, layout=0):
-    """One launch of the CUDA kernel on the current stream. `layout` 0
-    takes the kernel's own shape rule; 1 or 2 forces one of its bf16 layouts
-    (`dispatch_mma` in the source), for timing the rule on the card."""
+def _launch(q, k, v, bias, q_mask, k_mask, heads, bias_repeat,
+            layout=None):
+    """One launch of the CUDA kernel on the current stream, in the layout
+    `kernel_layout` picks; `layout` forces one (a bf16 layout of
+    `dispatch_mma` in the source, or 0 for the C side's older rule), for
+    timing the rule on the card."""
     _check(q, k, v, bias, q_mask, k_mask, heads, bias_repeat)
     fn = _library()
     b, nq, d = q.shape
     nk = k.shape[1]
+    if layout is None:
+        layout = kernel_layout(nq, nk, d, q.dtype, bias is not None)
     out = torch.empty_like(q)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(q.device):

@@ -26,7 +26,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    triangle shapes under the default policy's pattern and a banded
    block-128 one, plus one call at the default scale), then at the
    tensor-core tile's edge cases (ragged and odd lengths, every head
-   width, replayed bias, fully masked rows, every bf16 layout of K1,
+   width, replayed bias, fully masked rows, every bf16 layout of K1 —
+   layout 3, the warpgroup kernel, at Nq and Nk of 64 to 1024 beside
+   layout 1, and the shapes the layout rule keeps off it —
    every K2 block size, live keys all masked, other scales), and at the
    widths and blocks without a kernel instance: K1 at D = 8, 48 and 96
    (zero-padded to the next instance), K2 at block 48 (re-planned at
@@ -45,7 +47,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    or FLOPs bound), at each shape of phase 3; K1's bf16 layouts at the
    MSA column, triangle and pointwise shapes; K2 also beside K1 on the
    same shape with the pattern as an additive bias (the dense cost),
-   under the default pattern and a banded block-128 one;
+   under the default pattern and a banded block-128 one; K1's bf16
+   layouts, where the rule chooses between two (1 and 3 for Nq >= 64, 1
+   and 2 for Nq <= 16), by profiler device time in turns, at each shape
+   and at the menu's 512 and the memory probe's 384 triangle;
 5. parity: small fp32 models folded on the card (kernel path) and on
    the CPU (plain path) from the same weights: dense on seq/MSA, dense
    with every new input at once (templates, template angles, extra MSA,
@@ -79,6 +84,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    trunk 24 a pass), and give finite coords and distogram; wall and
    peak memory per fold, then a profile of one fold (device time by
    kernel, K1's share, busy share);
+8a. fold-ab: the 256-bucket fold of phase 6 and the full-feature fold of
+   phase 8 under K1's layout rule before layout 3 and under the current
+   one (`ops.attention.kernel_layout` swapped in the module), in turns
+   (old, new, new, old): each turn's wall (median of four unprofiled
+   folds), K1's device ms in one profiled fold, and K1's launches, equal
+   under both rules;
 9. executor: the same model behind `serve.executor.FoldExecutor` with
    the default buckets and the default kernel policy (the 512 bucket
    block-sparse, the others dense): warm-up, three folds of 512, 437
@@ -424,17 +435,18 @@ def phase_build():
 def ptxas_summary(report):
     """One line per compiled kernel from `-Xptxas -v`: kernel name and
     template arguments (the fp32 kernels <D, BQ>; the bf16 tensor-core
-    kernels <D, WG, G, BK, STAGES>), registers, shared memory, spills."""
+    kernels <D, WG, G, BK, STAGES>; the warpgroup kernel <D, BIAS>),
+    registers, shared memory, spills."""
     lines, entry, spill = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             targs = re.search(r"\d((?:fused_attention|block_sparse)"
-                              r"(?:_sliced)?(?:_mma(?:_wide)?)?_kernel)"
-                              r"I(\w*?)((?:Li\d+E)+)",
+                              r"(?:_sliced)?(?:_mma(?:_wide)?|_wgmma)?"
+                              r"_kernel)I(\w*?)((?:Li\d+E)+)",
                               m.group(1))
             entry = "{} {}<{}>".format(
-                targs.group(1), "bf16" if "_mma_" in targs.group(1)
+                targs.group(1), "bf16" if "mma_" in targs.group(1)
                 or "bfloat16" in targs.group(2) else "f32", ", ".join(re.findall(r"Li(\d+)E",
                                                  targs.group(3)))) \
                 if targs else m.group(1)
@@ -617,6 +629,24 @@ K1_EDGES = [(5, 5, 64, 8, 3, False), (131, 131, 32, 2, 2, True),
             (17, 5, 64, 4, 2, False), (64, 7, 16, 2, 3, True)]
 K2_EDGES = [(16, 16, 1.0), (32, 128, 0.37), (64, 32, 1.0),
             (128, 64, 0.125), (128, 128, 1.0), (32, 64, 2.0)]
+# K1's layout 3 (the warpgroup kernel) at its edges: (Nq, Nk, D, heads,
+# bias_repeat, bias, full), Nq and Nk over 64, 131, 200, 256 and 1024,
+# every head width, a bias replayed over bias_repeat > 1 with heads > 1,
+# ragged lengths (131 keys only without a bias), `full` masking one query
+# row and one key row in full; each against layout 1 and the plain version
+K1_WARPGROUP_EDGES = [(64, 64, 16, 8, 3, True, True),
+                      (131, 131, 32, 2, 2, False, True),
+                      (200, 256, 64, 2, 3, True, False),
+                      (256, 200, 128, 1, 2, True, True),
+                      (1024, 1024, 64, 2, 1, False, True),
+                      (131, 1024, 16, 2, 2, True, True),
+                      (1024, 64, 32, 1, 2, True, False),
+                      (256, 131, 128, 4, 2, False, False)]
+# launch shapes the rule keeps off layout 3, and the layout each takes:
+# odd Nk under a bias (1), Nq <= 16 (2), 16 < Nq < 64 (1)
+K1_ROUTED_SHAPES = [((131, 131, 64, True), 1), ((257, 257, 64, True), 1),
+                    ((5, 5, 64, False), 2), ((1, 4, 64, False), 2),
+                    ((48, 48, 64, True), 1)]
 # widths and blocks with no kernel instance, and the route each takes
 # on the card: K1 at these head widths (zero-padded to 16, 64, 128);
 # K2 at block 48 (re-planned at 16) and block 24 (K1, pattern as bias)
@@ -633,8 +663,9 @@ ROUTED_BLOCKS = ((48, "block_sparse_attention (K2, re-planned at 16)"),
 
 def phase_check_edges():
     """Both kernels at the tile's edge cases against their plain versions
-    in fp32 on the same values; bf16 K1 in every layout of its dispatch
-    (0 = the shape rule, 1 and 2 forced), K2 with a query block whose live
+    in fp32 on the same values; bf16 K1 in the mma.sync tile's layouts (0
+    = the C side's older rule, 1 and 2 forced) and, at K1_WARPGROUP_EDGES,
+    in layout 3, with the rule's routes; K2 with a query block whose live
     keys are all masked (it averages over its live keys, as the plain
     version does). Returns the worst error per (kernel, dtype)."""
     from alphafold2_tpu_torch.ops import attention as attn
@@ -709,11 +740,67 @@ def phase_check_edges():
                                      f"{dtype}: max abs err {err}")
             key = ("block_sparse", dtype)
             worst[key] = max(worst.get(key, 0.0), err)
+        if dtype == torch.bfloat16:
+            check_warpgroup_edges(worst)
         check_routes(dtype, worst)
         check_sliced_widths(dtype, worst)
     worst["padded_width_ms"] = time_padded_width()
     worst["sliced"] = time_sliced_widths()
     return worst
+
+
+def check_warpgroup_edges(worst):
+    """bf16 K1 in layout 3 at K1_WARPGROUP_EDGES against the plain version
+    in fp32 on the same values and against layout 1 (tolerance 2e-2), and
+    the rule's layout at K1_ROUTED_SHAPES."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    dev, dtype = torch.device("cuda"), torch.bfloat16
+    tol = TOLERANCE[dtype]
+    for nq, nk, d, heads, rep, with_bias, full in K1_WARPGROUP_EDGES:
+        g = torch.Generator().manual_seed(nq + 3 * nk + d)
+        b = heads * rep
+        q, k = (torch.randn(b, n, d, generator=g) * 0.5 for n in (nq, nk))
+        v = torch.randn(b, nk, d, generator=g)
+        bias = torch.randn(heads, nq, nk, generator=g).to(dev) \
+            if with_bias else None
+        qm = torch.arange(nq)[None] < torch.randint(
+            (nq + 1) // 2, nq + 1, (rep, 1), generator=g)
+        km = torch.arange(nk)[None] < torch.randint(
+            (nk + 1) // 2, nk + 1, (rep, 1), generator=g)
+        if full:
+            qm[0] = False
+            km[-1] = False
+        qm, km = qm.to(dev), km.to(dev)
+        q, k, v = (t.to(dev, dtype) for t in (q, k, v))
+        if attn.kernel_layout(nq, nk, d, dtype, with_bias) != attn.WARPGROUP:
+            raise AssertionError(f"the rule keeps Nq={nq} Nk={nk} D={d} "
+                                 f"off layout 3")
+        ref = attn.attention_reference(q.float(), k.float(), v.float(), bias,
+                                       qm, km, heads=heads, bias_repeat=rep)
+        outs = {layout: attn._launch(q, k, v, bias, qm, km, heads, rep,
+                                     layout=layout)
+                for layout in (attn.WARPGROUP, attn.TILE)}
+        torch.cuda.synchronize()
+        err = float((outs[attn.WARPGROUP].float() - ref).abs().max())
+        gap = float((outs[attn.WARPGROUP].float() -
+                     outs[attn.TILE].float()).abs().max())
+        log(f"check fused_attention layout 3 edge Nq={nq} Nk={nk} D={d} "
+            f"heads={heads} repeat={rep}{' bias' if with_bias else ''}"
+            f"{' full masks' if full else ''} bf16: max abs err {err:.3e}, "
+            f"against layout 1 {gap:.3e} (tolerance {tol:.0e})")
+        if not (err <= tol and gap <= tol) or \
+                not torch.isfinite(outs[attn.WARPGROUP]).all():
+            raise AssertionError(f"fused_attention layout 3 edge Nq={nq} "
+                                 f"Nk={nk} D={d}: err {err}, gap {gap}")
+        key = ("fused_attention", dtype)
+        worst[key] = max(worst.get(key, 0.0), err)
+    for (nq, nk, d, with_bias), want in K1_ROUTED_SHAPES:
+        got = attn.kernel_layout(nq, nk, d, dtype, with_bias)
+        log(f"check fused_attention rule Nq={nq} Nk={nk} D={d}"
+            f"{' bias' if with_bias else ''}: layout {got} (want {want})")
+        if got != want:
+            raise AssertionError(f"rule sends Nq={nq} Nk={nk} D={d} "
+                                 f"bias={with_bias} to {got}, not {want}")
 
 
 def check_routes(dtype, worst):
@@ -991,31 +1078,69 @@ def sdpa_mask(kw, dtype):
 # shapes where the shape rule chooses between them
 TIME_ITERS = {"msa_row": 50, "msa_col": 50, "triangle": 20,
               "msa_col_512": 50, "template_triangle": 10, "pointwise": 20,
-              "extra_row": 10, "extra_col": 10}
+              "extra_row": 10, "extra_col": 10, "menu_k1_triangle_512": 10,
+              "probe_triangle": 10}
 LAYOUT_SHAPES = ("msa_col", "triangle", "msa_col_512", "pointwise")
+# K1's bf16 shapes beyond the fold path's that phase_time also times with
+# layouts 1 and 3 in turns: the menu fold's 512 triangle (96 launches a
+# depth-12 fold) and the memory probe's 384 triangle
+LAYOUT3_EXTRA_SHAPES = ("menu_k1_triangle_512", "probe_triangle")
+
+
+def previous_rule(nq, nk, d, dtype, has_bias):
+    """K1's layout rule before the warpgroup layout: one warp per row for
+    Nq <= 16, the mma.sync tile for the rest of bf16, the fp32 kernel for
+    fp32 (the signature of `ops.attention.kernel_layout`)."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    if dtype != torch.bfloat16:
+        return attn.F32
+    return attn.ROW if nq <= 16 else attn.TILE
+
+
+def layout_turns(kw, iters):
+    """The bf16 layouts the rule chooses between at this launch, timed by
+    profiler device time in turns (a, b, b, a): 1 against 3 where the
+    warpgroup layout applies, 1 against 2 for Nq <= 16, else {}. Returns
+    {layout: [ms of the first turn, ms of the second]}."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    q, k, bias = kw["q"], kw["k"], kw["bias"]
+    nq, d = q.shape[1:]
+    if not hasattr(attn, "kernel_layout"):     # a tree before layout 3
+        pair = (1, 2) if nq <= 16 else ()
+    elif nq <= 16:
+        pair = (attn.TILE, attn.ROW)
+    elif attn.kernel_layout(nq, k.shape[1], d, q.dtype,
+                            bias is not None) == attn.WARPGROUP:
+        pair = (attn.TILE, attn.WARPGROUP)
+    else:
+        pair = ()
+    args = [kw[key] for key in ("q", "k", "v", "bias", "q_mask",
+                                "k_mask")] + [kw["heads"], kw["bias_repeat"]]
+    times = {}
+    for layout in pair + pair[::-1]:
+        times.setdefault(layout, []).append(device_ms(
+            lambda: attn._launch(*args, layout=layout), iters=iters))
+    return times
 
 
 def phase_time():
-    """K1 at each fold-path shape in bf16: kernel (CUDA events over a run
-    of launches, and device time per launch from torch.profiler), plain
-    version (over chunks of B where its logits pass 2 GiB), SDPA
-    yardstick and the bound; at the MSA column, triangle and pointwise
-    shapes also each bf16 layout of the kernel's dispatch by profiler
-    device time (where the tree has them), which is what the shape rule
-    is chosen from. The JSON record carries the triangle shape, the
-    256-bucket fold's largest and most frequent launch, and the other
-    shapes under `<shape>_*`."""
-    import inspect
+    """K1 at each fold-path shape in bf16, and at LAYOUT3_EXTRA_SHAPES:
+    kernel (CUDA events over a run of launches, and device time per launch
+    from torch.profiler), plain version (over chunks of B where its logits
+    pass 2 GiB), SDPA yardstick and the bound; where the shape rule
+    chooses between layouts, each candidate by profiler device time in
+    turns (`layout_turns`: 1 and 3, or 1 and 2 for Nq <= 16), beside its
+    share of the bound and the layout the rule picks. The JSON record
+    carries the triangle shape, the 256-bucket fold's largest and most
+    frequent launch, and the other shapes under `<shape>_*`."""
     from alphafold2_tpu_torch.ops import attention as attn
     dtype = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    has_layouts = "layout" in inspect.signature(attn._launch).parameters
     results = {}
-    for shape in K1_SHAPES:
+    for shape in K1_SHAPES + LAYOUT3_EXTRA_SHAPES:
         iters = TIME_ITERS[shape]
         kw = attention_inputs(shape, dtype, torch.device("cuda"), seed=3)
         q, k, v, bias = kw["q"], kw["k"], kw["v"], kw["bias"]
-        heads, rep = kw["heads"], kw["bias_repeat"]
         b, nq, d = q.shape
         nk = k.shape[1]
         ms = cuda_ms(lambda: attn.fused_attention(**kw), iters=iters)
@@ -1032,37 +1157,35 @@ def phase_time():
             log(f"  sdpa refused {shape}: {str(e).splitlines()[0][:200]}")
             library_ms = None
         del add_mask
-        layouts = {}
-        if has_layouts and shape in LAYOUT_SHAPES:
-            args = [kw[key] for key in ("q", "k", "v", "bias", "q_mask",
-                                        "k_mask")] + [heads, rep]
-            for layout in (1, 2):
-                layouts[layout] = device_ms(
-                    lambda: attn._launch(*args, layout=layout), iters=iters)
-
-        nbytes = (2 * b * (nq + nk) * d * q.element_size()
-                  + (0 if bias is None else bias.numel() * 4)
-                  + kw["q_mask"].numel() + kw["k_mask"].numel())
-        flops = 4 * b * nq * nk * d
+        turns = layout_turns(kw, iters)
+        bound_ms, bound_by, nbytes, flops = attention_bound(kw)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         flops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-        bound_ms = max(bytes_ms, flops_ms)
-        bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
         lib = "refused" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"time fused_attention {shape} bf16 B={b} Nq={nq} Nk={nk} "
             f"D={d}: kernel {ms:.4f} ms (events), {dev_ms:.4f} ms "
             f"(profiler device time), plain {plain_ms:.4f} ms, sdpa {lib}, "
             f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB -> "
             f"{bytes_ms:.4f} ms, {flops / 1e9:.3f} GFLOP -> "
-            f"{flops_ms:.4f} ms), {100 * bound_ms / dev_ms:.1f} % of bound")
-        if layouts:
-            log(f"  layouts by profiler device time (ms): " + ", ".join(
-                f"{key} {val:.4f}" for key, val in layouts.items()))
+            f"{flops_ms:.4f} ms), {100 * bound_ms / dev_ms:.1f} % of bound "
+            f"[{CARD}]")
         results[shape] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                               library_ms=library_ms, bound_ms=bound_ms,
-                              bound_by=bound_by)
-        results[shape].update({f"layout{key}_ms": val
-                               for key, val in layouts.items()})
+                              bound_by=bound_by,
+                              share=bound_ms / dev_ms)
+        if turns:
+            mean = {key: sum(val) / len(val) for key, val in turns.items()}
+            picked = attn.kernel_layout(nq, nk, d, dtype, bias is not None) \
+                if hasattr(attn, "kernel_layout") else 0
+            log(f"  layouts by profiler device time in turns (ms): " +
+                "; ".join(f"{key}: " + ", ".join(f"{t:.4f}" for t in val) +
+                          f" ({100 * bound_ms / mean[key]:.1f} % of bound)"
+                          for key, val in turns.items()) +
+                f"; the rule picks {picked}, the faster is "
+                f"{min(mean, key=mean.get)}")
+            for key, val in mean.items():
+                results[shape][f"layout{key}_ms"] = val
+                results[shape][f"layout{key}_share"] = bound_ms / val
         del kw, q, k, v, bias
     per_fold = sum(results[s]["device_ms"] * c for s, c in
                    (("msa_row", 24), ("msa_col", 24), ("triangle", 48)))
@@ -1071,7 +1194,7 @@ def phase_time():
         f"{24 * results['msa_col_512']['device_ms']:.2f} ms per 512-bucket "
         f"fold (24 column launches)")
     record = dict(results["triangle"])
-    for shape in K1_SHAPES:
+    for shape in results:
         if shape != "triangle":
             record.update({f"{shape}_{key}": val
                            for key, val in results[shape].items()
@@ -1715,6 +1838,76 @@ def phase_fold_full(model):
         for handle in handles:
             handle.remove()
     return launches, walls, peaks, req, feats
+
+
+def k1_device_ms(run):
+    """K1's device ms in one call of `run` under torch.profiler (device
+    activity only, so the host is slowed the least)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and re.search(r"fused_attention\w*_kernel", e.key)) / 1e3
+
+
+# unprofiled folds per turn of the fold-level A/B, whose median is the
+# turn's wall
+AB_WALLS = 4
+
+
+def phase_fold_ab(runs):
+    """Fold-level A/B of K1's layout rule in this one call: each of `runs`
+    ({name: fold}) under the rule before the warpgroup layout
+    (`previous_rule`) and under `ops.attention.kernel_layout`, swapped in
+    the module, in turns (old, new, new, old). Per turn: the median wall
+    of AB_WALLS unprofiled folds, the first of which also counts K1's
+    launches (equal under both rules: the rule picks a layout, not a
+    number of launches), and K1's device ms in one profiled fold. Returns
+    {name: {rule: [turns]}}."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    rules = {"old": previous_rule, "new": attn.kernel_layout}
+    out = {}
+    try:
+        for name, run in runs.items():
+            turns = out[name] = {"old": [], "new": []}
+            for rule in ("old", "new", "new", "old"):
+                attn.kernel_layout = rules[rule]
+                walls = []
+                for i in range(AB_WALLS):
+                    result, _, k1, seconds, _ = count_fold(run)
+                    if i == 0:
+                        check_result(result, BUCKET)
+                        launches = k1
+                    walls.append(seconds * 1e3)
+                turns[rule].append(dict(
+                    k1_launches=launches, wall_ms=float(np.median(walls)),
+                    k1_device_ms=k1_device_ms(run)))
+            launches = {t["k1_launches"] for ts in turns.values() for t in ts}
+            if len(launches) != 1:
+                raise AssertionError(f"fold-ab {name}: K1 launches differ "
+                                     f"between the rules: {turns}")
+            mean = {rule: {key: float(np.mean([t[key] for t in ts]))
+                           for key in ("wall_ms", "k1_device_ms")}
+                    for rule, ts in turns.items()}
+            log(f"fold-ab {name}: K1 launches {launches.pop()} under both "
+                f"rules; old rule wall " + ", ".join(
+                    f"{t['wall_ms']:.1f}" for t in turns["old"]) +
+                " ms, K1 " + ", ".join(
+                    f"{t['k1_device_ms']:.2f}" for t in turns["old"]) +
+                " ms; new rule wall " + ", ".join(
+                    f"{t['wall_ms']:.1f}" for t in turns["new"]) +
+                " ms, K1 " + ", ".join(
+                    f"{t['k1_device_ms']:.2f}" for t in turns["new"]) +
+                f" ms (means: wall {mean['old']['wall_ms']:.1f} -> "
+                f"{mean['new']['wall_ms']:.1f} ms, K1 "
+                f"{mean['old']['k1_device_ms']:.2f} -> "
+                f"{mean['new']['k1_device_ms']:.2f} ms) [{CARD}]")
+    finally:
+        attn.kernel_layout = rules["new"]
+    return out
 
 
 def phase_executor(model, cfg):
@@ -4610,6 +4803,10 @@ def main(argv=None):
         f"memory {max(full_peaks) / 2**30:.3f} GiB, K1 "
         f"{k1_full_ms:.1f} ms of {busy:.1f} ms device time "
         f"({100 * k1_full_ms / busy:.1f} %)")
+    fold_ab = run("fold-ab", phase_fold_ab, {
+        "fold": lambda: fold(model, **req, num_recycles=NUM_RECYCLES),
+        "fold_full": lambda: fold(model, **full_req,
+                                  num_recycles=NUM_RECYCLES, **feats)})
     del full_req, feats
     bs_launches, k1_sparse, ex, batch, spec = run("executor", phase_executor,
                                                   model, cfg)
@@ -4680,6 +4877,7 @@ def main(argv=None):
         "fold_full_peak_gib": max(full_peaks) / 2**30,
         "fold_full_k1_device_ms": k1_full_ms,
         "fold_full_device_busy_ms": busy,
+        "fold_ab": fold_ab,
         "launches_per_train_step": train["k1_launches_per_step"],
         "launches_per_recycled_train_step": recycled["k1_launches"],
         "recycles_of_that_step": recycled["r"],

@@ -133,8 +133,9 @@ def edge_case(shape, dtype, device, seed=0):
 def test_cuda_kernel_edge_shapes(cuda_device, dtype):
     """K1 at the tile's edge shapes against the plain version in fp32 on
     the same values (atol 1e-4 fp32, 2e-2 bf16). bf16 runs every layout
-    of the tensor-core kernel (0 = the shape rule, 1 and 2 forced), so the
-    rule may pick any of them."""
+    of the mma.sync tile (0 = the C side's older rule, 1 and 2 forced),
+    so either rule may pick any of them; layout 3 has its own tests
+    below."""
     dt = getattr(torch, dtype)
     atol = 1e-4 if dt == torch.float32 else 2e-2
     layouts = (0,) if dt == torch.float32 else (0, 1, 2)
@@ -444,6 +445,105 @@ def test_cuda_kernel_autograd_matches_plain(cuda_device, dtype):
         for got, ref in zip(*grads):
             err = float((got.float() - ref).abs().max() / ref.abs().max())
             assert err <= tol, f"{name}: {err} > {tol}"
+
+
+# Layout 3 (the warpgroup kernel) at the main path's shapes, bf16, heads 8,
+# D 64, the padded tail masked: (residues, real residues, N, bias). The
+# 256 triangle (B 2048, the bias replayed over the 256 fold rows), the
+# extra-MSA column (B 2048 = 256 residues x 8 heads over 1024 rows, no
+# bias) and a ragged 131 (no bias: 131 keys under a bias take layout 1).
+WARPGROUP_SHAPES = {
+    "triangle_256": (256, 200, 256, True),
+    "extra_col_1024": (256, 200, 1024, False),
+    "ragged_131": (16, 12, 131, False),
+}
+
+
+def warpgroup_case(shape, device, seed=0):
+    """(q, k, v, bias, q_mask, k_mask, heads, bias_repeat) in bf16 on
+    `device` for one WARPGROUP_SHAPES entry: `rows` mask rows of n
+    queries, each row's keys cut at a random length >= n // 2, and rows
+    past `real` masked in full."""
+    rows, real, n, with_bias = WARPGROUP_SHAPES[shape]
+    heads, d = 8, 64
+    g = torch.Generator().manual_seed(seed)
+    b = rows * heads
+    q, k = (torch.randn(b, n, d, generator=g) * 0.5 for _ in range(2))
+    v = torch.randn(b, n, d, generator=g)
+    bias = torch.randn(heads, n, n, generator=g).to(device) \
+        if with_bias else None
+    mask = torch.arange(n)[None] < torch.randint(n // 2, n + 1, (rows, 1),
+                                                 generator=g)
+    mask[real:] = False
+    mask = mask.to(device)
+    return ([t.to(device, torch.bfloat16) for t in (q, k, v)] +
+            [bias, mask, mask, heads, rows if with_bias else 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(WARPGROUP_SHAPES))
+def test_warpgroup_layout_matches_plain(cuda_device, shape):
+    """The shape rule sends each shape to layout 3, and one launch through
+    the public wrapper matches the plain version in fp32 on the same
+    values (atol 2e-2: the bf16 output's rounding), over chunks of 256
+    batch*head rows so the plain logits stay small."""
+    q, k, v, bias, qm, km, heads, rep = warpgroup_case(shape, cuda_device)
+    nq, d = q.shape[1:]
+    assert pt_attn.kernel_layout(nq, k.shape[1], d, q.dtype,
+                                 bias is not None) == pt_attn.WARPGROUP
+    before = pt_attn.launch_count.value
+    out = pt_attn.fused_attention(q, k, v, bias, qm, km, heads=heads,
+                                  bias_repeat=rep)
+    torch.cuda.synchronize()
+    assert pt_attn.launch_count.value == before + 1
+    assert torch.isfinite(out).all()
+    step = 256 * (rep if bias is not None else 1)
+    for s in range(0, q.shape[0], step):
+        e = s + step
+        ref = pt_attn.attention_reference(
+            q[s:e].float(), k[s:e].float(), v[s:e].float(),
+            None if bias is None else bias[s // rep:e // rep],
+            qm[s // heads:e // heads], km[s // heads:e // heads],
+            heads=heads, bias_repeat=rep)
+        err = float((out[s:e].float() - ref).abs().max())
+        assert err <= 2e-2, f"{shape} rows {s}-{e}: {err}"
+
+
+@pytest.mark.gpu
+def test_warpgroup_layout_autograd_matches_plain(cuda_device):
+    """Autograd through `_FusedAttention` with the layout-3 forward (one
+    launch; the backward's plain recompute launches nothing), against the
+    plain version's autograd in fp32 on the same values: error over the
+    largest reference gradient <= 2e-2 (the bf16 recompute rounds its
+    logits)."""
+    g = torch.Generator().manual_seed(5)
+    heads, rep, n, d = 2, 3, 128, 64
+    qm = torch.arange(n)[None] < torch.randint(n // 2, n + 1, (rep, 1),
+                                                generator=g)
+    qm[0] = False
+    qm = qm.to(cuda_device)
+    values = [torch.randn(heads * rep, n, d, generator=g) * s
+              for s in (0.5, 0.5, 1.0)]
+    bias = torch.randn(heads, n, n, generator=g).to(cuda_device)
+    cot = torch.randn(heads * rep, n, d, generator=g).to(cuda_device)
+    assert pt_attn.kernel_layout(n, n, d, torch.bfloat16, True) == \
+        pt_attn.WARPGROUP
+    grads = []
+    for fn, dt in ((pt_attn.fused_attention, torch.bfloat16),
+                   (pt_attn.attention_reference, torch.float32)):
+        leaves = [x.to(cuda_device, torch.bfloat16).to(dt).requires_grad_()
+                  for x in values]
+        b = bias.clone().requires_grad_()
+        before = pt_attn.launch_count.value
+        out = fn(*leaves, b, qm, qm, heads=heads, bias_repeat=rep)
+        grads.append(torch.autograd.grad((out.float() * cot).sum(),
+                                         leaves + [b]))
+        if fn is pt_attn.fused_attention:
+            torch.cuda.synchronize()
+            assert pt_attn.launch_count.value == before + 1
+    for got, ref in zip(*grads):
+        err = float((got.float() - ref).abs().max() / ref.abs().max())
+        assert err <= 2e-2, err
 
 
 @pytest.mark.gpu

@@ -156,6 +156,31 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
     _rejected(heads=3)
 
 
+# (Nq, Nk, launch head width, dtype, bias, layout): the main path's shapes
+# and the edges of the layout rule
+_BF16 = torch.bfloat16
+LAYOUT_RULE = [
+    (256, 256, 64, _BF16, True, pt_attn.WARPGROUP),   # the 256 triangle
+    (1024, 1024, 64, _BF16, False, pt_attn.WARPGROUP),  # extra-MSA column
+    (64, 64, 16, _BF16, True, pt_attn.WARPGROUP),     # the warpgroup's rows
+    (131, 131, 128, _BF16, False, pt_attn.WARPGROUP),  # ragged, no bias
+    (131, 131, 64, _BF16, True, pt_attn.TILE),        # Nk % 4 under a bias
+    (5, 5, 64, _BF16, False, pt_attn.ROW),            # MSA column, N = 5
+    (1, 4, 64, _BF16, False, pt_attn.ROW),            # template pointwise
+    (48, 48, 64, _BF16, True, pt_attn.TILE),          # 16 < Nq < 64
+    (256, 256, 256, _BF16, True, pt_attn.TILE),       # the sliced path
+    (256, 256, 64, torch.float32, True, pt_attn.F32),  # the fp32 kernel
+]
+
+
+@pytest.mark.parametrize("nq, nk, d, dtype, has_bias, layout", LAYOUT_RULE)
+def test_kernel_layout_rule(nq, nk, d, dtype, has_bias, layout):
+    """The layout each launch shape takes on the card: the warpgroup kernel
+    wherever it applies, one warp per row for Nq <= 16, the mma.sync tile
+    for the rest of bf16, the CUDA-core kernel for fp32."""
+    assert pt_attn.kernel_layout(nq, nk, d, dtype, has_bias) == layout
+
+
 def test_other_devices_never_reach_the_plain_version():
     q = torch.zeros(2, 8, 16, device="meta")
     with pytest.raises(ValueError):

@@ -1,8 +1,10 @@
 // A warpgroup attention mainloop for Hopper (sm_90a): TMA loads into
 // mbarrier rings, wgmma products in consumer warpgroups, persistent
 // blocks. Used by the fused biased attention (fused_attention.cu, K1,
-// layout 3); written so that the block-sparse attention (K2) can take up
-// the same pieces.
+// layout 3); the block-sparse attention (block_sparse.cu, K2, layout 3)
+// builds its own mainloop from the same pieces (the mbarrier and TMA
+// helpers, the descriptors and wgmma instances, tile_logits, Ring and the
+// host's tensor-map encoding).
 //
 // A block has kThreads threads: kConsumers consumer warpgroups (warps
 // 0-7) and one producer warp (warp 8). The grid is one block per SM (at
@@ -257,6 +259,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 16, fp32) = A . B (+ d when `accumulate`); A (64 x 16) and
+// B (16 x 16) from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 32, fp32) = A . B (+ d when `accumulate`); A (64 x 16) and
 // B (32 x 16) from shared memory, both K-major
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
@@ -389,13 +405,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
 // S + bias with the masks of one key tile, into s; the rows' maxima into
 // mx. FAST: every key of the tile exists and is unmasked and both of the
 // thread's rows are valid, so no mask is looked at. Two partial maxima a
-// row keep the dependency chains short.
-template <int BK, int BIAS, bool FAST>
+// row keep the dependency chains short. The bias tile is BK / BCOLS boxes
+// of BROWS rows by BCOLS fp32 keys, each under the TMA's (BCOLS * 4)-byte
+// swizzle (K1: boxes of 128 rows by 32 keys). SCALED: the fp32 logits are
+// multiplied by `scale` before the bias add (K2; K1's q arrives scaled).
+template <int BK, int BIAS, bool FAST, int BROWS = kTileRows,
+          int BCOLS = kBiasCols, bool SCALED = false>
 __device__ __forceinline__ void tile_logits(float (&s)[BK / 2],
                                             const uint8_t* bias_tile,
                                             const float* flags,
                                             const bool (&q_ok)[2], int row0,
-                                            int t4, float (&mx)[2]) {
+                                            int t4, float (&mx)[2],
+                                            float scale = 1.f) {
+  constexpr int BROW = BCOLS * 4;   // bytes of one bias row
   float part[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j) {
@@ -417,11 +439,14 @@ __device__ __forceinline__ void tile_logits(float (&s)[BK / 2],
     for (int r = 0; r < 2; ++r) {
       float x0 = s[4 * j + 2 * r];
       float x1 = s[4 * j + 2 * r + 1];
+      if constexpr (SCALED) {
+        x0 *= scale;
+        x1 *= scale;
+      }
       if constexpr (BIAS != 0) {
-        const uint32_t off = (row0 + 8 * r) * 128 + (c % kBiasCols) * 4;
+        const uint32_t off = (row0 + 8 * r) * BROW + (c % BCOLS) * 4;
         const float2 b = *reinterpret_cast<const float2*>(
-            bias_tile + (c / kBiasCols) * kTileRows * 128 +
-            swizzle<128>(off));
+            bias_tile + (c / BCOLS) * BROWS * BROW + swizzle<BROW>(off));
         x0 += b.x;
         x1 += b.y;
       }

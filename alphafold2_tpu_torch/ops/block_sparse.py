@@ -32,12 +32,20 @@ version. Contract, shared by both:
 
 A `BlockPlan` is a pattern's column list on one device: `cols` (rows,
 T) int32 and the per-row live `counts` (rows,) int32, over blocks of the
-plan's `kernel_block` (below). The serving executor uploads one per key
-when it builds the key, so no launch copies the plan to the card.
+plan's `kernel_block` (below), for K2's `mma.sync` layout; and the unit
+plan of its warpgroup layout (`unit_plan`): per unit of 64 query rows,
+the union of its query blocks' live key blocks with an owner mask per
+entry (bit w: warp w's 16 rows own that key block), the entry count, and
+the units in order of entry count, heaviest first. The serving executor
+uploads one per key when it builds the key, so no launch copies the plan
+to the card.
 
 Which shape takes which route on the card (`block_sparse_attention`):
 
-- block in {16, 32, 64, 128}: K2 over the plan as it is;
+- block in {16, 32, 64, 128}: K2 over the plan as it is, bf16 in the
+  layout `kernel_layout` picks (the warpgroup kernel of
+  `csrc/block_sparse.cu` on TMA, mbarrier rings and `wgmma`, or the
+  `mma.sync` tile of `csrc/attention_tile.cuh`), fp32 on the CUDA cores;
 - any other block that is a multiple of 16 (48, 80, 96, ...): K2 over
   the same live set re-planned at `kernel_block`, the largest of those
   widths that divides the block (each live block becomes a square of
@@ -71,14 +79,22 @@ import torch
 
 from alphafold2_tpu_torch import constants
 from alphafold2_tpu_torch.ops import build
-from alphafold2_tpu_torch.ops.attention import (_DTYPE_CODES, MASK_VALUE,
-                                                LaunchCounter,
+from alphafold2_tpu_torch.ops.attention import (_DTYPE_CODES, F32,
+                                                HEAD_DIMS, MASK_VALUE, TILE,
+                                                WARPGROUP, LaunchCounter,
                                                 check_head_dim,
                                                 fused_attention,
                                                 pad_head_dim)
 
 BLOCKS = (16, 32, 64, 128)
 BACKENDS = ("auto", "masked")
+# query rows a unit of the warpgroup layout (one warpgroup), and its warps
+UNIT_ROWS, UNIT_WARPS = 64, 4
+# the most shared memory the warpgroup kernel gives a unit plan
+# (kPlanBytes in csrc/block_sparse.cu)
+UNIT_PLAN_BYTES = 32 * 1024
+# BlockPlan's unit plan, in the order the kernel takes it
+UNIT_FIELDS = ("unit_cols", "unit_owners", "unit_counts", "unit_order")
 
 launch_count = LaunchCounter()
 
@@ -121,12 +137,67 @@ def kernel_block(block: int) -> int:
     return max(divisors) if divisors else 0
 
 
+def kernel_layout(block: int, n: int, d: int, dtype: torch.dtype,
+                  has_bias: bool) -> int:
+    """The layout a K2 launch at (kernel block, N, launch head width d,
+    dtype) takes (the constants of `ops.attention`), chosen from device
+    times on the H100 (PERF.md): F32 for fp32 (the CUDA-core kernel);
+    WARPGROUP for bf16 at d in HEAD_DIMS and a block in BLOCKS (TMA,
+    mbarrier rings, `wgmma`, units of 64 query rows); TILE (the
+    `mma.sync` tile) for the rest of bf16: the sliced path above d = 128,
+    N below one unit's 64 rows, and a unit plan that could outgrow the
+    kernel's UNIT_PLAN_BYTES of shared memory (N above ~2900 at block
+    32)."""
+    if dtype != torch.bfloat16:
+        return F32
+    units = -(-n // UNIT_ROWS)
+    if d in HEAD_DIMS and block in BLOCKS and n >= UNIT_ROWS and \
+            4 * units * (n // block + 2) <= UNIT_PLAN_BYTES:
+        return WARPGROUP
+    return TILE
+
+
+def unit_plan(live: np.ndarray, block: int
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The warpgroup layout's units over a (nqb, nqb) live set at kernel
+    block `block`: unit u is query rows 64u..64u+63 (four blocks of 16,
+    two of 32, one of 64 or half of one of 128), warp w its rows
+    64u+16w..64u+16w+15. Returns cols (units, T) int32, the union of the
+    unit's query blocks' live key blocks in ascending order; owners
+    (units, T) int32, bit w set where warp w's query block has that key
+    block live (rows past N own nothing); counts (units,) int32, the
+    entries of each unit; order (units,) int32, the units by count,
+    heaviest first (ties in row order)."""
+    live = np.asarray(live, dtype=bool)
+    n = live.shape[0] * block
+    units = -(-n // UNIT_ROWS)
+    rows = []
+    for u in range(units):
+        owners = np.zeros(live.shape[1], np.int32)
+        for w in range(UNIT_WARPS):
+            r = u * UNIT_ROWS + 16 * w
+            if r < n:
+                owners |= live[r // block].astype(np.int32) << w
+        rows.append(owners)
+    counts = np.array([np.count_nonzero(o) for o in rows], np.int32)
+    t = int(counts.max())
+    cols = np.zeros((units, t), np.int32)
+    owner = np.zeros((units, t), np.int32)
+    for u, o in enumerate(rows):
+        idx = np.nonzero(o)[0]
+        cols[u, :idx.size] = idx
+        owner[u, :idx.size] = o[idx]
+    order = np.argsort(-counts, kind="stable").astype(np.int32)
+    return cols, owner, counts, order
+
+
 class BlockPlan(NamedTuple):
     """A block pattern's column list on one device (see module doc).
     `cols`/`counts` index blocks of `kernel_block` tokens (the pattern
-    re-planned when its block has no K2 instance); with `kernel_block`
-    0 the card runs K1 and `bias` holds the pattern as an (n, n) fp32
-    0 / -1e9 additive bias."""
+    re-planned when its block has no K2 instance), and so do the unit
+    plan's `unit_cols` (`unit_plan`, for the warpgroup layout); with
+    `kernel_block` 0 the card runs K1, `bias` holds the pattern as an
+    (n, n) fp32 0 / -1e9 additive bias and there is no unit plan."""
 
     pattern: np.ndarray        # (nqb, nqb) bool, host copy
     block: int
@@ -134,6 +205,10 @@ class BlockPlan(NamedTuple):
     counts: torch.Tensor       # (nqb * r,) int32
     kernel_block: int
     bias: Optional[torch.Tensor]   # (n, n) fp32 when kernel_block is 0
+    unit_cols: Optional[torch.Tensor] = None     # (units, Tu) int32
+    unit_owners: Optional[torch.Tensor] = None   # (units, Tu) int32
+    unit_counts: Optional[torch.Tensor] = None   # (units,) int32
+    unit_order: Optional[torch.Tensor] = None    # (units,) int32
 
     @property
     def n(self) -> int:
@@ -158,9 +233,11 @@ class BlockPlan(NamedTuple):
                                             np.float32(MASK_VALUE)),
                                    device=device)
         cols, valid = plan_block_pattern(live)
+        units = [torch.as_tensor(a, device=device)
+                 for a in unit_plan(live, kb)] if kb else [None] * 4
         return cls(pattern, block, torch.as_tensor(cols, device=device),
                    torch.as_tensor(valid.sum(axis=1, dtype=np.int32),
-                                   device=device), kb, bias)
+                                   device=device), kb, bias, *units)
 
 
 def token_mask(pattern: np.ndarray, block: int) -> np.ndarray:
@@ -419,7 +496,8 @@ def _check(q, k, v, plan, bias, bias_repeat, k_mask, heads):
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
     tensors = {"q": q, "k": k, "v": v, "bias": bias, "k_mask": k_mask,
-               "plan.cols": plan.cols, "plan.counts": plan.counts}
+               **{f"plan.{name}": getattr(plan, name)
+                  for name in ("cols", "counts") + UNIT_FIELDS}}
     for name, t in tensors.items():
         if t is None:
             continue
@@ -428,8 +506,9 @@ def _check(q, k, v, plan, bias, bias_repeat, k_mask, heads):
         if not t.is_contiguous():
             raise ValueError(f"block_sparse_attention kernel needs "
                              f"contiguous tensors; {name} is not")
-    if plan.cols.dtype != torch.int32 or plan.counts.dtype != torch.int32:
-        raise TypeError("the plan's cols and counts must be int32")
+    if any(t is not None and t.dtype != torch.int32
+           for name, t in tensors.items() if name.startswith("plan.")):
+        raise TypeError("the plan's tensors must be int32")
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} must all be one (B, N, D)")
@@ -466,7 +545,7 @@ def _library():
         p = ctypes.c_void_p
         i = ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                       ctypes.c_float, i, p]
+                       ctypes.c_float, i, i, p, p, p, p, i, i, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -546,23 +625,40 @@ def _average_shut_rows(out, v, plan: BlockPlan, k_mask, heads: int):
                        out.reshape(b, nb, block, d)).reshape(b, n, d)
 
 
-def _launch(q, k, v, plan, *, bias, bias_repeat, k_mask, heads, scale):
+def _launch(q, k, v, plan, *, bias, bias_repeat, k_mask, heads, scale,
+            layout=None):
     """One launch of K2 on the current stream, at the plan's kernel
-    block."""
+    block, in the layout `kernel_layout` picks; `layout` forces one (TILE
+    or WARPGROUP for bf16, or 0 for the C side's older rule), for timing
+    the rule on the card."""
     _check(q, k, v, plan, bias, bias_repeat, k_mask, heads)
     b, n, d = q.shape
+    if layout is None:
+        layout = kernel_layout(plan.kernel_block, n, d, q.dtype,
+                               bias is not None)
     fn = _library()
     out = torch.empty_like(q)
     ptr = lambda t: None if t is None else t.data_ptr()
+    units = (None,) * 4 + (0, 0, None)
+    if layout == WARPGROUP:
+        # the kernel reads the key mask 16 bytes at a time
+        if k_mask is not None and k_mask.data_ptr() % 16:
+            k_mask = k_mask.clone()
+        # the unit plan, and the item counter the kernel zeroes and
+        # counts its units with
+        counter = torch.empty(1, dtype=torch.int32, device=q.device)
+        units = (*(ptr(getattr(plan, name)) for name in UNIT_FIELDS),
+                 *plan.unit_cols.shape, ptr(counter))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(k_mask),
                  ptr(plan.cols), ptr(plan.counts), ptr(out), b, n, d,
                  plan.kernel_block, int(plan.cols.shape[1]), heads,
-                 bias_repeat, float(scale), _DTYPE_CODES[q.dtype], stream)
+                 bias_repeat, float(scale), _DTYPE_CODES[q.dtype], layout,
+                 *units, stream)
     if err != 0:
         raise RuntimeError(f"block_sparse_attention kernel launch failed: "
                            f"CUDA error {err} (B={b}, N={n}, D={d}, "
-                           f"block={plan.kernel_block})")
+                           f"block={plan.kernel_block}, layout {layout})")
     launch_count.value += 1
     return out

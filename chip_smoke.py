@@ -24,12 +24,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
    = 1; end2end-egnn's 64 residues; the fp32 reversible checks' 128),
    plus a small backward against autograd; K2 at the 512 bucket's MSA row and
    triangle shapes under the default policy's pattern and a banded
-   block-128 one, plus one call at the default scale), then at the
+   block-128 one, bf16 in both layouts (the warpgroup kernel and the
+   mma.sync tile), plus one call at the default scale), then at the
    tensor-core tile's edge cases (ragged and odd lengths, every head
    width, replayed bias, fully masked rows, every bf16 layout of K1 —
    layout 3, the warpgroup kernel, at Nq and Nk of 64 to 1024 beside
    layout 1, and the shapes the layout rule keeps off it —
-   every K2 block size, live keys all masked, other scales), and at the
+   K2 at every block size and head width in fp32 and in both bf16
+   layouts, live keys all masked, other scales, the global row of 16
+   live blocks, irregular contact patterns, and K2's layout rule's
+   routes), and at the
    widths and blocks without a kernel instance: K1 at D = 8, 48 and 96
    (zero-padded to the next instance), K2 at block 48 (re-planned at
    16) and block 24 (K1 with the pattern as a bias), each launch counted
@@ -50,7 +54,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    under the default pattern and a banded block-128 one; K1's bf16
    layouts, where the rule chooses between two (1 and 3 for Nq >= 64, 1
    and 2 for Nq <= 16), by profiler device time in turns, at each shape
-   and at the menu's 512 and the memory probe's 384 triangle;
+   and at the menu's 512 and the memory probe's 384 triangle; K2's bf16
+   layouts (the mma.sync tile and the warpgroup kernel) by profiler
+   device time in turns at the triangle and the MSA row under both
+   patterns, each beside its bound and share;
 5. parity: small fp32 models folded on the card (kernel path) and on
    the CPU (plain path) from the same weights: dense on seq/MSA, dense
    with every new input at once (templates, template angles, extra MSA,
@@ -97,6 +104,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    of 200 residues in the 256 bucket (0 K2 + 96 K1), and a step-mode
    fold whose steps run under a spec re-planned from the first pass's
    distogram; then a profile of one 512-bucket fold;
+9h. fold-ab-k2: one 512-bucket executor fold of 300 residues under K2's
+   layout rule before the warpgroup layout and under
+   `ops.block_sparse.kernel_layout` (swapped in the module), in turns
+   (old, new, new, old): each turn's wall (median of four unprofiled
+   folds), K2's device ms in one profiled fold, and K2's launches (72
+   under both rules);
 9a. scheduler: the same model behind the port's `serve.Scheduler`
    (default buckets and kernel policy, max_batch_size 2, 5 MSA rows, 3
    recycles, a memory FoldCache, a JSONL Tracer, RetryPolicy(
@@ -623,12 +636,18 @@ def phase_check():
 # bias_repeat, full), lengths off the 16/64 grid (5, 17, 131, 200), odd Nk
 # under a bias, every head width, a bias replayed over bias_repeat > 1
 # with heads > 1; `full` masks one query row and one key row in full.
-# K2: (block, D, scale), every block and head width, scales other than 1.
+# K2: (block, D, scale), every block at every head width, scales other
+# than 1; K2_PATTERN_EDGES: (name, N, block), the global row of 16 live
+# blocks and irregular contact patterns, whose pair unions have unequal
+# halves. bf16 runs each in both layouts.
 K1_EDGES = [(5, 5, 64, 8, 3, False), (131, 131, 32, 2, 2, True),
             (200, 131, 16, 2, 1, False), (131, 200, 128, 1, 2, True),
             (17, 5, 64, 4, 2, False), (64, 7, 16, 2, 3, True)]
-K2_EDGES = [(16, 16, 1.0), (32, 128, 0.37), (64, 32, 1.0),
-            (128, 64, 0.125), (128, 128, 1.0), (32, 64, 2.0)]
+K2_EDGES = [(block, d, scale) for (block, d), scale in zip(
+    itertools.product((16, 32, 64, 128), (16, 32, 64, 128)),
+    itertools.cycle((1.0, 0.37, 0.125, 2.0)))]
+K2_PATTERN_EDGES = [("global row", 512, 32), ("contact", 512, 32),
+                    ("contact", 256, 16)]
 # K1's layout 3 (the warpgroup kernel) at its edges: (Nq, Nk, D, heads,
 # bias_repeat, bias, full), Nq and Nk over 64, 131, 200, 256 and 1024,
 # every head width, a bias replayed over bias_repeat > 1 with heads > 1,
@@ -710,38 +729,56 @@ def phase_check_edges():
             key = ("fused_attention", dtype)
             worst[key] = max(worst.get(key, 0.0), max(errs))
         heads, rep = 2, 3
-        for block, d, scale in K2_EDGES:
-            n = 4 * block
-            g = torch.Generator().manual_seed(block + d)
+        edges = [(f"block={block} D={d} scale={scale}", 4 * block, block, d,
+                  scale, bs.banded_block_pattern(4, 0, 1))
+                 for block, d, scale in K2_EDGES]
+        edges += [(f"{name} N={n} block={block}", n, block, 64, 1.0,
+                   k2_edge_pattern(name, n, block))
+                  for name, n, block in K2_PATTERN_EDGES]
+        for label, n, block, d, scale, pattern in edges:
+            g = torch.Generator().manual_seed(block + d + n)
             b = heads * rep
             q, k = (torch.randn(b, n, d, generator=g) * 0.5 for _ in range(2))
             v = torch.randn(b, n, d, generator=g)
             bias = torch.randn(heads, n, n, generator=g)
             km = torch.arange(n)[None] < torch.randint(
                 n // 2, n + 1, (rep, 1), generator=g)
-            # window 0, one global block: query block 1 sees key blocks 0
-            # and 1, every key of which is masked in this mask row
+            # the small pattern (window 0, one global block): query block 1
+            # sees key blocks 0 and 1, every key of which is masked in this
+            # mask row
             km[1, :2 * block] = False
-            plan = bs.BlockPlan.build(bs.banded_block_pattern(4, 0, 1),
-                                      block, dev)
+            plan = bs.BlockPlan.build(pattern, block, dev)
             kw = dict(bias=bias.to(dev), bias_repeat=rep, k_mask=km.to(dev),
                       heads=heads, scale=scale)
             args = [t.to(dev, dtype) for t in (q, k, v)]
-            out = bs.block_sparse_attention(*args, plan, **kw)
-            torch.cuda.synchronize()
             ref = bs.block_sparse_reference(*(t.float() for t in args), plan,
                                             **kw)
-            err = float((out.float() - ref).abs().max())
-            log(f"check block_sparse edge block={block} D={d} scale={scale} "
-                f"{str(dtype)[6:]}: max abs err {err:.3e} (tolerance "
-                f"{tol:.0e})")
-            if not err <= tol or not torch.isfinite(out).all():
-                raise AssertionError(f"block_sparse edge block {block} D {d} "
-                                     f"{dtype}: max abs err {err}")
+            if dtype == torch.float32:
+                runs = {"rule": lambda: bs.block_sparse_attention(
+                    *args, plan, **kw)}
+            else:
+                runs = {layout: lambda layout=layout: bs._launch(
+                    *args, plan, layout=layout, **kw)
+                    for layout in (attn.TILE, attn.WARPGROUP)}
+            errs = {}
+            for name, run in runs.items():
+                out = run()
+                torch.cuda.synchronize()
+                errs[name] = float((out.float() - ref).abs().max())
+                if not errs[name] <= tol or not torch.isfinite(out).all():
+                    raise AssertionError(
+                        f"block_sparse edge {label} {dtype} layout {name}: "
+                        f"max abs err {errs[name]}")
+            log(f"check block_sparse edge {label} {str(dtype)[6:]}: max abs "
+                f"err " + ", ".join(f"{e:.3e}" if name == "rule" else
+                                    f"layout {name} {e:.3e}"
+                                    for name, e in errs.items()) +
+                f" (tolerance {tol:.0e})")
             key = ("block_sparse", dtype)
-            worst[key] = max(worst.get(key, 0.0), err)
+            worst[key] = max(worst.get(key, 0.0), *errs.values())
         if dtype == torch.bfloat16:
             check_warpgroup_edges(worst)
+            check_block_sparse_rule()
         check_routes(dtype, worst)
         check_sliced_widths(dtype, worst)
     worst["padded_width_ms"] = time_padded_width()
@@ -801,6 +838,46 @@ def check_warpgroup_edges(worst):
         if got != want:
             raise AssertionError(f"rule sends Nq={nq} Nk={nk} D={d} "
                                  f"bias={with_bias} to {got}, not {want}")
+
+
+def k2_edge_pattern(name, n, block):
+    """A K2_PATTERN_EDGES pattern: the default policy's banded pattern
+    (window 1, one global block: a global row of n / block live blocks),
+    or one planned from seeded random contacts (the top 20 % of blocks,
+    symmetrised with the band), whose pair unions have unequal halves."""
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    if name == "global row":
+        return bs.banded_block_pattern(n // block, 1, 1)
+    contacts = np.random.default_rng(n + block).random((n, n))
+    return bs.contact_block_pattern(contacts.astype(np.float32), block,
+                                    live_frac=0.2)
+
+
+# K2's layout rule at the shapes it keeps off the warpgroup kernel, and
+# at a re-planned block: ((kernel block, N, launch head width, dtype),
+# layout); block 48 re-plans at 16
+K2_RULE_SHAPES = [((32, 512, 64, torch.float32), 0),
+                  ((32, 512, 256, torch.bfloat16), 1),
+                  ((16, 192, 64, torch.bfloat16), 3)]
+
+
+def check_block_sparse_rule():
+    """K2's layout rule: fp32 to the CUDA-core kernel, D > 128 to the
+    sliced path (the mma.sync tile), and a block of 48 re-planned at 16
+    onto the warpgroup kernel."""
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    plan = bs.BlockPlan.build(bs.banded_block_pattern(4, 1, 1), 48, "cpu")
+    log(f"check block_sparse rule: block 48 re-planned at "
+        f"{plan.kernel_block}")
+    if plan.kernel_block != 16:
+        raise AssertionError(f"block 48 re-plans at {plan.kernel_block}")
+    for (block, n, d, dtype), want in K2_RULE_SHAPES:
+        got = bs.kernel_layout(block, n, d, dtype, True)
+        log(f"check block_sparse rule block={block} N={n} D={d} "
+            f"{str(dtype)[6:]}: layout {got} (want {want})")
+        if got != want:
+            raise AssertionError(f"K2's rule sends block {block} D {d} "
+                                 f"{dtype} to {got}, not {want}")
 
 
 def check_routes(dtype, worst):
@@ -1203,9 +1280,9 @@ def phase_time():
 
 
 def sparse_specs():
-    """The two K2 patterns held on the card: the default kernel policy's
-    spec for the 512 bucket (block 32, window 1, one global block) and a
-    banded block-128 one."""
+    """The K2 patterns held on the card: the default kernel policy's spec
+    for the 512 bucket (block 32, window 1, one global block), a banded
+    block-128 one and (timed only) a banded block-16 one."""
     from alphafold2_tpu_torch import ModelConfig
     from alphafold2_tpu_torch.ops.block_sparse import KernelSpec
     from alphafold2_tpu_torch.serve.bucketing import default_policy
@@ -1213,7 +1290,8 @@ def sparse_specs():
     policy = KernelPolicy.from_model_config(ModelConfig(),
                                             default_policy().edges)
     return {"default": policy.spec_for(SPARSE_BUCKET),
-            "banded128": KernelSpec.banded(SPARSE_BUCKET, 128)}
+            "banded128": KernelSpec.banded(SPARSE_BUCKET, 128),
+            "banded16": KernelSpec.banded(SPARSE_BUCKET, 16)}
 
 
 def block_sparse_inputs(shape, spec, dtype, device, seed, d=64):
@@ -1247,7 +1325,9 @@ def block_sparse_inputs(shape, spec, dtype, device, seed, d=64):
 def phase_check_block_sparse():
     """K2 against its plain version (in fp32 on the same values) at every
     row, at the 512 bucket's two K2 shapes, both patterns, both dtypes;
-    one more call at the default scale."""
+    one more call at the default scale; bf16 in both layouts (the
+    mma.sync tile, 1, and the warpgroup kernel, 3)."""
+    from alphafold2_tpu_torch.ops import attention as attn
     from alphafold2_tpu_torch.ops import block_sparse as bs
     dev = torch.device("cuda")
     worst = {}
@@ -1260,22 +1340,38 @@ def phase_check_block_sparse():
         spec = sparse_specs()[pname]
         kw = block_sparse_inputs(shape, spec, dtype, dev, seed=4)
         kw["scale"] = scale
-        out = bs.block_sparse_attention(**kw)
-        torch.cuda.synchronize()
         ref = bs.block_sparse_reference(**dict(kw, **{
             key: kw[key].float() for key in ("q", "k", "v")}))
-        err = float((out.float() - ref).abs().max())
-        del ref
+        layouts = {"rule": None} if dtype == torch.float32 else {
+            layout: layout for layout in (attn.TILE, attn.WARPGROUP)}
         tol = TOLERANCE[dtype]
+        errs = {}
+        for name, layout in layouts.items():
+            if layout is None:
+                out = bs.block_sparse_attention(**kw)
+            else:
+                out = bs._launch(*(kw[key] for key in ("q", "k", "v",
+                                                       "plan")),
+                                 layout=layout, **{
+                                     key: kw[key] for key in (
+                                         "bias", "bias_repeat", "k_mask",
+                                         "heads", "scale")})
+            torch.cuda.synchronize()
+            errs[name] = float((out.float() - ref).abs().max())
+            if not errs[name] <= tol or not torch.isfinite(out).all():
+                raise AssertionError(f"block_sparse {shape} {pname} {dtype} "
+                                     f"layout {name}: max abs err "
+                                     f"{errs[name]} > {tol}")
+            del out
+        del ref
         log(f"check block_sparse {shape} {pname} ({spec.label}, live "
             f"{spec.live_fraction:.4f}) {str(dtype)[6:]} scale "
             f"{'default' if scale is None else scale} "
-            f"B={kw['q'].shape[0]} N={kw['q'].shape[1]}: max abs err "
-            f"{err:.3e} (tolerance {tol:.0e})")
-        if not err <= tol or not torch.isfinite(out).all():
-            raise AssertionError(f"block_sparse {shape} {pname} {dtype}: "
-                                 f"max abs err {err} > {tol}")
-        worst[dtype] = max(worst.get(dtype, 0.0), err)
+            f"B={kw['q'].shape[0]} N={kw['q'].shape[1]}: max abs err " +
+            ", ".join(f"{e:.3e}" if name == "rule" else
+                      f"layout {name} {e:.3e}" for name, e in errs.items()) +
+            f" (tolerance {tol:.0e})")
+        worst[dtype] = max(worst.get(dtype, 0.0), *errs.values())
     return worst
 
 
@@ -1313,17 +1409,35 @@ def sparse_sdpa_mask(kw, spec, dtype):
     return add_mask.masked_fill(~live, float("-inf")).to(dtype)
 
 
+def k2_layout_turns(kw, iters):
+    """K2's bf16 layouts at this launch, the mma.sync tile (1) and the
+    warpgroup kernel (3), timed by profiler device time in turns (1, 3,
+    3, 1). Returns {layout: [ms of the first turn, ms of the second]}."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    args = [kw[key] for key in ("q", "k", "v", "plan")]
+    rest = {key: kw[key] for key in ("bias", "bias_repeat", "k_mask",
+                                     "heads", "scale")}
+    times = {}
+    for layout in (attn.TILE, attn.WARPGROUP, attn.WARPGROUP, attn.TILE):
+        times.setdefault(layout, []).append(device_ms(
+            lambda: bs._launch(*args, layout=layout, **rest), iters=iters))
+    return times
+
+
 def phase_time_block_sparse():
     """K2 at the 512 bucket's shapes in bf16 under the default policy's
-    pattern (live 0.2891) and the banded block-128 one (live 0.875):
-    kernel (CUDA events, and profiler device time per launch), K1 on the
-    same shape with the pattern as an additive bias (the masked backend:
-    the dense cost, both clocks), and the bound; under the default
-    pattern also the plain version and an SDPA yardstick on the
-    equivalent dense additive mask. The two patterns are two measured
-    points of the K2/dense crossover in live fraction. The JSON record
-    carries the default pattern's triangle shape and the rest under
-    `<shape>_*` and `banded128_<shape>_*`."""
+    pattern (live 0.2891), the banded block-128 one (live 0.875) and the
+    banded block-16 one (live 0.1504): kernel (CUDA events, and profiler
+    device time per launch), K1 on the same shape with the pattern as an
+    additive bias (the masked backend: the dense cost, both clocks), the
+    bound, the plain version and an SDPA yardstick on the equivalent
+    dense additive mask; K2's two bf16 layouts by profiler device time in
+    turns (`k2_layout_turns`), each beside its share of the bound and the
+    layout the rule picks. The patterns are three measured points of the
+    K2/dense crossover in live fraction. The JSON record carries the
+    default pattern's triangle shape and the rest under `<shape>_*`,
+    `banded128_<shape>_*` and `banded16_<shape>_*`."""
     from alphafold2_tpu_torch.ops import attention as attn
     from alphafold2_tpu_torch.ops import block_sparse as bs
     dtype = torch.bfloat16
@@ -1351,21 +1465,20 @@ def phase_time_block_sparse():
             del pattern_bias
             entry = dict(ms=ms, device_ms=dev_ms, dense_k1_ms=dense_ms,
                          dense_k1_device_ms=dense_dev_ms)
-            extra = ""
-            if pname == "default":
-                plain_ms = cuda_ms(lambda: bs.block_sparse_reference(**kw),
-                                   iters=max(iters // 2, 3))
-                # yardstick only: one library call on the equivalent mask
-                add_mask = sparse_sdpa_mask(kw, spec, dtype)
-                library_ms = cuda_ms(
-                    lambda: sdpa(q, k, v, attn_mask=add_mask, scale=1.0),
-                    iters=max(iters // 2, 3))
-                del add_mask
-                entry.update(plain_ms=plain_ms, library_ms=library_ms)
-                extra = (f", plain {plain_ms:.4f} ms, sdpa "
-                         f"{library_ms:.4f} ms")
+            plain_ms = cuda_ms(lambda: bs.block_sparse_reference(**kw),
+                               iters=max(iters // 2, 3))
+            # yardstick only: one library call on the equivalent mask
+            add_mask = sparse_sdpa_mask(kw, spec, dtype)
+            library_ms = cuda_ms(
+                lambda: sdpa(q, k, v, attn_mask=add_mask, scale=1.0),
+                iters=max(iters // 2, 3))
+            del add_mask
+            entry.update(plain_ms=plain_ms, library_ms=library_ms)
+            extra = f", plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms"
             bound_ms, bound_by, nbytes, flops = block_sparse_bound(kw, spec)
-            entry.update(bound_ms=bound_ms, bound_by=bound_by)
+            entry.update(bound_ms=bound_ms, bound_by=bound_by,
+                         share=bound_ms / dev_ms)
+            turns = k2_layout_turns(kw, iters)
             log(f"time block_sparse {shape} {pname} bf16 B={b} N={n} D={d} "
                 f"({spec.label}, live {spec.live_fraction:.4f}): kernel "
                 f"{ms:.4f} ms (events), {dev_ms:.4f} ms (profiler device "
@@ -1373,7 +1486,18 @@ def phase_time_block_sparse():
                 f"(events), {dense_dev_ms:.4f} ms (profiler){extra}, bound "
                 f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
                 f"{flops / 1e9:.3f} GFLOP), {100 * bound_ms / dev_ms:.1f} % "
-                f"of bound; K2 / dense {dev_ms / dense_dev_ms:.3f}")
+                f"of bound; K2 / dense {dev_ms / dense_dev_ms:.3f} [{CARD}]")
+            mean = {key: sum(val) / len(val) for key, val in turns.items()}
+            picked = bs.kernel_layout(spec.block, n, d, dtype, True)
+            log(f"  K2 layouts by profiler device time in turns (ms): " +
+                "; ".join(f"{key}: " + ", ".join(f"{t:.4f}" for t in val) +
+                          f" ({100 * bound_ms / mean[key]:.1f} % of bound)"
+                          for key, val in turns.items()) +
+                f"; the rule picks {picked}, the faster is "
+                f"{min(mean, key=mean.get)}")
+            for key, val in mean.items():
+                entry[f"layout{key}_ms"] = val
+                entry[f"layout{key}_share"] = bound_ms / val
             results[(pname, shape)] = entry
     row, tri = results[("default", "msa_row")], results[("default",
                                                          "triangle")]
@@ -1908,6 +2032,73 @@ def phase_fold_ab(runs):
     finally:
         attn.kernel_layout = rules["new"]
     return out
+
+
+def previous_k2_rule(block, n, d, dtype, has_bias):
+    """K2's layout rule before the warpgroup layout: the CUDA-core kernel
+    for fp32, the mma.sync tile for bf16 (the signature of
+    `ops.block_sparse.kernel_layout`)."""
+    from alphafold2_tpu_torch.ops import attention as attn
+    return attn.F32 if dtype != torch.bfloat16 else attn.TILE
+
+
+def k2_device_ms(run):
+    """K2's device ms in one call of `run` under torch.profiler (device
+    activity only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and re.search(r"block_sparse\w*_kernel", e.key)) / 1e3
+
+
+def phase_fold_ab_k2(run, want):
+    """Fold-level A/B of K2's layout rule in this one call: the 512-bucket
+    executor fold `run` under the rule before the warpgroup layout
+    (`previous_k2_rule`) and under `ops.block_sparse.kernel_layout`,
+    swapped in the module, in turns (old, new, new, old). Per turn: the
+    median wall of AB_WALLS unprofiled folds, the first of which also
+    counts K2's launches (`want`, under both rules), and K2's device ms in
+    one profiled fold. Returns {rule: [turns]}."""
+    from alphafold2_tpu_torch.ops import block_sparse as bs
+    rules = {"old": previous_k2_rule, "new": bs.kernel_layout}
+    turns = {"old": [], "new": []}
+    try:
+        for rule in ("old", "new", "new", "old"):
+            bs.kernel_layout = rules[rule]
+            walls = []
+            for i in range(AB_WALLS):
+                result, k2, _, seconds, _ = count_fold(run)
+                if i == 0:
+                    check_result(result, SPARSE_BUCKET)
+                    launches = k2
+                walls.append(seconds * 1e3)
+            turns[rule].append(dict(
+                k2_launches=launches, wall_ms=float(np.median(walls)),
+                k2_device_ms=k2_device_ms(run)))
+    finally:
+        bs.kernel_layout = rules["new"]
+    launches = {t["k2_launches"] for ts in turns.values() for t in ts}
+    if launches != {want}:
+        raise AssertionError(f"fold-ab-k2: K2 launches {turns}")
+    mean = {rule: {key: float(np.mean([t[key] for t in ts]))
+                   for key in ("wall_ms", "k2_device_ms")}
+            for rule, ts in turns.items()}
+    log(f"fold-ab-k2 512-bucket executor fold: K2 launches {launches.pop()} "
+        f"under both rules; old rule wall " + ", ".join(
+            f"{t['wall_ms']:.1f}" for t in turns["old"]) + " ms, K2 " +
+        ", ".join(f"{t['k2_device_ms']:.2f}" for t in turns["old"]) +
+        " ms; new rule wall " + ", ".join(
+            f"{t['wall_ms']:.1f}" for t in turns["new"]) + " ms, K2 " +
+        ", ".join(f"{t['k2_device_ms']:.2f}" for t in turns["new"]) +
+        f" ms (means: wall {mean['old']['wall_ms']:.1f} -> "
+        f"{mean['new']['wall_ms']:.1f} ms, K2 "
+        f"{mean['old']['k2_device_ms']:.2f} -> "
+        f"{mean['new']['k2_device_ms']:.2f} ms) [{CARD}]")
+    return turns
 
 
 def phase_executor(model, cfg):
@@ -4814,6 +5005,9 @@ def main(argv=None):
         lambda: ex.run(batch, NUM_RECYCLES, kernel=spec),
         f"executor fold {SPARSE_LENGTHS[-1]} residues, bucket "
         f"{SPARSE_BUCKET} ({spec.label})")
+    fold_ab_k2 = run("fold-ab-k2", phase_fold_ab_k2,
+                     lambda: ex.run(batch, NUM_RECYCLES, kernel=spec),
+                     bs_launches // len(SPARSE_LENGTHS))
     del ex
     sched = run("scheduler", phase_scheduler, model, cfg)
     fleet_out = run("fleet", phase_fleet, model, cfg)
@@ -4945,6 +5139,7 @@ def main(argv=None):
         "launches": bs_launches,
         "launches_per_fold": bs_launches // len(SPARSE_LENGTHS),
         "live_fraction": spec.live_fraction,
+        "fold_ab": fold_ab_k2,
         "max_abs_err": bs_worst[torch.bfloat16],
         "max_err_f32": bs_worst[torch.float32],
         "max_err_bf16": bs_worst[torch.bfloat16],

@@ -91,6 +91,141 @@ def test_plain_and_cpu_wrapper_match_jax_kernel(name):
     assert torch.equal(plain, wrapped)        # CPU tensors: the plain path
 
 
+def unit_walk(q, k, v, plan, *, bias=None, bias_repeat=1, k_mask=None,
+              heads=1, scale=1.0):
+    """A plain PyTorch walker of the warpgroup layout's unit plan, in the
+    kernel's order: per unit of 64 query rows (units in `unit_order`),
+    its entries and key tiles of min(block, 32) keys, an online fp32
+    softmax tile by tile in which only the 16-row warps an entry's owner
+    mask names take part (the others keep their max, sum and output)."""
+    b, n, d = q.shape
+    kb = plan.kernel_block
+    bk = min(kb, 32)
+    full = None
+    if bias is not None:
+        full = bias.float().reshape(-1, heads, n, n).repeat_interleave(
+            bias_repeat, 0).reshape(b, n, n)
+    out = torch.zeros(b, n, d)
+    for u in plan.unit_order.tolist():
+        r0, r1 = 64 * u, min(64 * u + 64, n)
+        qs = torch.zeros(b, 64, d)
+        qs[:, :r1 - r0] = q[:, r0:r1].float()
+        m = torch.full((b, 64), float("-inf"))
+        l = torch.zeros(b, 64)
+        o = torch.zeros(b, 64, d)
+        for e in range(int(plan.unit_counts[u])):
+            col, own = int(plan.unit_cols[u, e]), int(plan.unit_owners[u, e])
+            rows = torch.tensor([(own >> (r // 16)) & 1 == 1
+                                 for r in range(64)])
+            for t in range(kb // bk):
+                j = col * kb + t * bk + torch.arange(bk)
+                s = qs @ k[:, j].float().transpose(1, 2) * scale
+                if full is not None:
+                    tile = torch.zeros(b, 64, bk)
+                    tile[:, :r1 - r0] = full[:, r0:r1][:, :, j]
+                    s = s + tile
+                if k_mask is not None:
+                    keep = k_mask.repeat_interleave(heads, 0)[:, j]
+                    s = s.masked_fill(~keep[:, None, :], pt_bs.MASK_VALUE)
+                m_new = torch.maximum(m, s.amax(-1))
+                p = torch.exp(s - m_new[..., None])
+                alpha = torch.exp(m - m_new)
+                l_new = l * alpha + p.sum(-1)
+                o_new = o * alpha[..., None] + p @ v[:, j].float()
+                m = torch.where(rows, m_new, m)
+                l = torch.where(rows, l_new, l)
+                o = torch.where(rows[:, None], o_new, o)
+        out[:, r0:r1] = (o / l[..., None])[:, :r1 - r0]
+    return out
+
+
+@pytest.mark.parametrize("block", [16, 32])
+def test_unit_plan_walker_matches_jax_kernel(block):
+    """The warpgroup layout's unit plan, walked tile by tile with its
+    owner masks (`unit_walk`), computes the contract: held against the
+    JAX Pallas kernel in interpret mode (fp32, atol 1e-5) at N = 96, so
+    the last unit holds rows past N; a bias replayed over bias_repeat
+    with two heads, a scale other than 1, and a query block whose live
+    keys are all masked in one mask row."""
+    rng = np.random.default_rng(block)
+    heads, rep, n, d = 2, 2, 96, 16
+    b = 2 * heads * rep
+    nqb = n // block
+    pattern = pt_bs.banded_block_pattern(nqb, 1, 1)
+    q, k, v = (rng.normal(size=(b, n, d)).astype(np.float32)
+               for _ in range(3))
+    bias = rng.normal(size=(b // rep, n, n)).astype(np.float32)
+    k_mask = np.arange(n)[None] < rng.integers(n // 2, n + 1,
+                                               (b // heads, 1))
+    k_mask[1, :3 * block] = False       # query block 1: every live key
+    kw = dict(bias=bias, bias_repeat=rep, heads=heads, k_mask=k_mask,
+              scale=0.37, block=block)
+    want = jax_out(q, k, v, pattern, kw)
+    plan = pt_bs.BlockPlan.build(pattern, block, "cpu")
+    got = unit_walk(t(q), t(k), t(v), plan, bias=t(bias), bias_repeat=rep,
+                    k_mask=t(k_mask), heads=heads, scale=0.37)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+def unit_plan_cases():
+    """(pattern, block) of every unit shape: the default 512 spec, banded
+    patterns at each K2 block, a block-48 pattern (re-planned at 16) and
+    an irregular contact pattern."""
+    rng = np.random.default_rng(5)
+    contacts = rng.random((256, 256)).astype(np.float32)
+    return {
+        "default_512": (pt_bs.banded_block_pattern(16, 1, 1), 32),
+        "band16": (pt_bs.banded_block_pattern(10, 1, 1), 16),
+        "band32": (pt_bs.banded_block_pattern(7, 2, 0), 32),
+        "band64": (pt_bs.banded_block_pattern(4, 0, 1), 64),
+        "band128": (pt_bs.banded_block_pattern(4, 1, 0), 128),
+        "replan48": (pt_bs.banded_block_pattern(4, 1, 1), 48),
+        "contact32": (pt_bs.contact_block_pattern(
+            np.maximum(contacts, contacts.T), 32, live_frac=0.2), 32),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(unit_plan_cases()))
+def test_block_sparse_unit_plan(name):
+    """The warpgroup layout's unit plan: every live (query block, key
+    block) is owned exactly once by each 16-row warp of the query block,
+    no dead one is owned, the tile counts are the unions' sizes (50 a
+    batch*head row at the default 512 spec) and the units run heaviest
+    first."""
+    pattern, block = unit_plan_cases()[name]
+    plan = pt_bs.BlockPlan.build(pattern, block, "cpu")
+    kb = plan.kernel_block
+    live = live_pattern(plan)
+    n = plan.n
+    units = -(-n // 64)
+    for name_ in pt_bs.UNIT_FIELDS:
+        assert getattr(plan, name_).dtype == torch.int32
+    assert tuple(plan.unit_counts.shape) == (units,)
+    owned = np.zeros((units * 4, live.shape[1]), int)   # (16-row warp, key)
+    for u in range(units):
+        count = int(plan.unit_counts[u])
+        cols = plan.unit_cols[u, :count].numpy()
+        owners = plan.unit_owners[u, :count].numpy()
+        assert np.all(np.diff(cols) > 0) and np.all(owners > 0)
+        for w in range(4):
+            owned[4 * u + w, cols] += (owners >> w) & 1
+        want = set()
+        for w in range(4):
+            if 64 * u + 16 * w < n:
+                want |= set(np.nonzero(live[(64 * u + 16 * w) // kb])[0])
+        assert set(cols.tolist()) == want
+    rows = np.arange(units * 4) * 16
+    expect = np.zeros_like(owned)
+    expect[rows < n] = live[rows[rows < n] // kb]
+    np.testing.assert_array_equal(owned, expect)
+    if name == "default_512":
+        assert int(plan.unit_counts.sum()) == 50
+        assert plan.unit_counts.tolist() == [16, 5, 5, 5, 5, 5, 5, 4]
+    order = plan.unit_order.numpy()
+    assert sorted(order.tolist()) == list(range(units))
+    assert np.all(np.diff(plan.unit_counts.numpy()[order]) <= 0)
+
+
 def test_dense_equivalence_through_pattern_bias():
     """With the pattern as a -1e9 additive bias, dense attention (JAX's
     and the port's) computes the same function."""

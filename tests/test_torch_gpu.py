@@ -343,6 +343,56 @@ def test_block_sparse_kernel_edge_cases(cuda_device, dtype):
         assert err <= atol, f"block {block} D {d}: {err} > {atol}"
 
 
+# K2's warpgroup layout at the 512 bucket's shapes under the default
+# policy (fold rows, heads, N, D, block) and at block 16
+BLOCK_SPARSE_WARPGROUP_SHAPES = {
+    "triangle_512": (512, 8, 512, 64, 32),
+    "msa_row_512": (5, 8, 512, 64, 32),
+    "block16": (4, 2, 256, 64, 16),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(BLOCK_SPARSE_WARPGROUP_SHAPES))
+def test_block_sparse_warpgroup_layout_matches_plain(cuda_device, name):
+    """The rule sends each shape to K2's warpgroup layout, and one launch
+    through the public wrapper matches the plain version in fp32 on the
+    same values (atol 2e-2: the bf16 output's rounding), over chunks of
+    256 batch*head rows so the plain logits stay small; key rows cut at
+    437 residues and one masked in full."""
+    from alphafold2_tpu_torch.ops import block_sparse as pt_bs
+    fold, heads, n, d, block = BLOCK_SPARSE_WARPGROUP_SHAPES[name]
+    g = torch.Generator().manual_seed(fold)
+    b = fold * heads
+    q, k = (torch.randn(b, n, d, generator=g) * 0.5 for _ in range(2))
+    v = torch.randn(b, n, d, generator=g)
+    bias = torch.randn(heads, n, n, generator=g).to(cuda_device)
+    k_mask = (torch.arange(n)[None] < min(437, n)).repeat(fold, 1)
+    k_mask[-1] = False
+    k_mask = k_mask.to(cuda_device)
+    plan = pt_bs.BlockPlan.build(
+        pt_bs.banded_block_pattern(n // block, 1, 1), block, cuda_device)
+    q, k, v = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v))
+    assert pt_bs.kernel_layout(block, n, d, q.dtype, True) == \
+        pt_attn.WARPGROUP
+    before = pt_bs.launch_count.value
+    out = pt_bs.block_sparse_attention(q, k, v, plan, bias=bias,
+                                       bias_repeat=fold, k_mask=k_mask,
+                                       heads=heads, scale=1.0)
+    torch.cuda.synchronize()
+    assert pt_bs.launch_count.value == before + 1
+    assert torch.isfinite(out).all()
+    step = 256
+    for s in range(0, b, step):
+        e = min(s + step, b)
+        ref = pt_bs.block_sparse_reference(
+            q[s:e].float(), k[s:e].float(), v[s:e].float(), plan,
+            bias=bias, bias_repeat=(e - s) // heads,
+            k_mask=k_mask[s // heads:e // heads], heads=heads, scale=1.0)
+        err = float((out[s:e].float() - ref).abs().max())
+        assert err <= 2e-2, f"{name} rows {s}-{e}: {err}"
+
+
 @pytest.mark.gpu
 def test_block_sparse_kernel_refuses_misfits(cuda_device):
     """On the card there is no fallback: a shape or type the kernels do
@@ -409,6 +459,43 @@ def test_executor_folds_512_bucket_through_k2(cuda_device):
     zero = {k: torch.zeros_like(v) for k, v in batch.items()}
     state = ex.run_init(zero, kernel=spec)
     assert torch.isfinite(state.coords).all()
+
+
+@pytest.mark.gpu
+def test_executor_512_fold_runs_k2_in_the_warpgroup_layout(cuda_device,
+                                                          monkeypatch):
+    """A FoldExecutor fold in the 512 bucket under the default kernel
+    policy still launches K2 72 times, every launch in the warpgroup
+    layout (the rule's picks recorded), with finite coordinates."""
+    from alphafold2_tpu_torch import ModelConfig
+    from alphafold2_tpu_torch.data.synthetic import synthetic_requests
+    from alphafold2_tpu_torch.ops import block_sparse as pt_bs
+    from alphafold2_tpu_torch.serve.bucketing import (BucketPolicy,
+                                                      default_policy)
+    from alphafold2_tpu_torch.serve.executor import FoldExecutor
+    from alphafold2_tpu_torch.serve.kernelpolicy import KernelPolicy
+
+    picks = []
+    rule = pt_bs.kernel_layout
+
+    def recorded(*args):
+        picks.append(rule(*args))
+        return picks[-1]
+
+    monkeypatch.setattr(pt_bs, "kernel_layout", recorded)
+    cfg = ModelConfig(predict_coords=True)
+    model = cfg.build(generator=torch.Generator().manual_seed(0))
+    edges = default_policy().edges
+    spec = KernelPolicy.from_model_config(cfg, edges).spec_for(512)
+    (req,) = synthetic_requests(np.random.default_rng(3), num=1,
+                                lengths=(437,), msa_depth=5)
+    batch, _ = BucketPolicy(edges).assemble([req], 512, 1, msa_depth=5)
+    pt_bs.launch_count.reset()
+    out = FoldExecutor(model).run(batch, 3, kernel=spec)
+    torch.cuda.synchronize()
+    assert pt_bs.launch_count.value == 72
+    assert picks == [pt_attn.WARPGROUP] * 72
+    assert torch.isfinite(out.coords).all()
 
 
 @pytest.mark.gpu

@@ -181,6 +181,31 @@ def test_kernel_layout_rule(nq, nk, d, dtype, has_bias, layout):
     assert pt_attn.kernel_layout(nq, nk, d, dtype, has_bias) == layout
 
 
+# K2's layout per launch shape: (kernel block, N, launch head width,
+# dtype, bias, layout)
+BLOCK_SPARSE_LAYOUT_RULE = [
+    (32, 512, 64, _BF16, True, pt_attn.WARPGROUP),    # the 512 triangle
+    (32, 512, 64, _BF16, False, pt_attn.WARPGROUP),   # no bias
+    (128, 512, 64, _BF16, True, pt_attn.WARPGROUP),   # banded block 128
+    (16, 192, 16, _BF16, True, pt_attn.WARPGROUP),    # block 48 re-planned
+    (32, 512, 256, _BF16, True, pt_attn.TILE),        # the sliced path
+    (16, 4096, 64, _BF16, True, pt_attn.TILE),        # a plan past 32 KB
+    (16, 48, 64, _BF16, True, pt_attn.TILE),          # N under 64 rows
+    (32, 512, 64, torch.float32, True, pt_attn.F32),  # the fp32 kernel
+]
+
+
+@pytest.mark.parametrize("block, n, d, dtype, has_bias, layout",
+                         BLOCK_SPARSE_LAYOUT_RULE)
+def test_block_sparse_kernel_layout_rule(block, n, d, dtype, has_bias,
+                                         layout):
+    """The layout each K2 launch shape takes on the card: the warpgroup
+    kernel for bf16 at every K2 block and head width up to 128, the
+    mma.sync tile for the sliced path, the CUDA-core kernel for fp32."""
+    from alphafold2_tpu_torch.ops import block_sparse as pt_bs
+    assert pt_bs.kernel_layout(block, n, d, dtype, has_bias) == layout
+
+
 def test_other_devices_never_reach_the_plain_version():
     q = torch.zeros(2, 8, 16, device="meta")
     with pytest.raises(ValueError):
